@@ -1,0 +1,168 @@
+"""The port's serving slice as a whole against the JAX package on the CPU.
+
+A JAX ``ImplicitMFScorer`` is trained on a small synthetic set (a reduced
+``bench.py::synth_interactions``, with users past 64 history items so two
+history-width rungs are served), carried across with
+``ImplicitMFScorer.from_numpy``, and both packages' ``device_recommend``
+results are compared.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from lkpy_tpu.batch.device import device_recommend as jax_device_recommend
+from lkpy_tpu.data import from_interactions_df as jax_from_df
+from lkpy_tpu.models.als import ImplicitMFScorer as JaxImplicitMF
+from lkpy_tpu.training import TrainingOptions
+from lkpy_tpu_torch.batch.device import device_recommend
+from lkpy_tpu_torch.data import from_interactions_df
+from lkpy_tpu_torch.models.als import ImplicitMFScorer
+from lkpy_tpu_torch.ops.spd_solve import spd_solve
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+#: score tolerance: the two packages solve the fold-in systems with
+#: differently ordered f32 arithmetic (LAPACK Cholesky vs the port's)
+TOL = 1e-4
+
+
+def synth_interactions(rng, n_users=300, n_items=400, nnz=30_000, n_groups=4):
+    """``bench.py::synth_interactions`` at a reduced size."""
+    item_w = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    cdf = np.cumsum(item_w / item_w.sum())
+    users = rng.integers(0, n_users, size=nnz)
+    user_group = rng.integers(0, n_groups, size=n_users)
+    in_group = rng.random(nnz) < 0.75
+    raw = np.searchsorted(cdf, rng.random(nnz))
+    snapped = np.minimum((raw // n_groups) * n_groups + user_group[users], n_items - 1)
+    items = np.where(in_group, snapped, raw)
+    key = np.unique(users * n_items + items)
+    return key // n_items, key % n_items
+
+
+@pytest.fixture(scope="module")
+def trained():
+    u, i = synth_interactions(np.random.default_rng(42))
+    df = pd.DataFrame({"user_id": u, "item_id": i})
+    jds = jax_from_df(df)
+    jax_scorer = JaxImplicitMF(features=16, epochs=3)
+    jax_scorer.train(jds, TrainingOptions(rng=42))
+    lens = np.bincount(u)
+    assert (lens <= 64).any() and (lens > 64).any()  # two history-width rungs
+    return jds, from_interactions_df(df), jax_scorer
+
+
+def _scorers(trained, user_embeddings):
+    jds, tds, fitted = trained
+    cfg = {"features": 16, "epochs": 3, "user_embeddings": user_embeddings}
+    js = JaxImplicitMF(JaxImplicitMF.validate_config(cfg))
+    js.users, js.items = fitted.users, fitted.items
+    js.user_embeddings, js.item_embeddings, js._OtOr = fitted.user_embeddings, fitted.item_embeddings, fitted._OtOr
+    params = {"user_embeddings": js.user_embeddings, "item_embeddings": js.item_embeddings, "_OtOr": js._OtOr}
+    ts = ImplicitMFScorer.from_numpy(params, cfg, tds.users, tds.items, device="cpu")
+    return js, ts
+
+
+@pytest.mark.parametrize("user_embeddings", [True, "prefer"])
+@pytest.mark.parametrize("n", [10, 500])
+def test_device_recommend_matches_jax(trained, user_embeddings, n):
+    jds, tds, _ = trained
+    js, ts = _scorers(trained, user_embeddings)
+    users = np.concatenate([jds.users.ids[::3], [-7, 10**6]])
+    ref = jax_device_recommend(js, users, n, jds.interaction_matrix(), chunk=32)
+    before = spd_solve.launches
+    got = device_recommend(ts, users, n, tds.interaction_matrix(), chunk=32, device="cpu")
+    assert spd_solve.launches == before  # CPU tensors take the plain version
+    assert len(got) == len(ref) == len(users)
+    matrix = tds.interaction_matrix()
+    for (gk, gl), (rk, rl) in zip(got.items(), ref.items()):
+        assert gk.user_id == rk.user_id
+        assert len(gl) == len(rl)
+        gs, rs = gl.scores(), rl.scores()
+        np.testing.assert_allclose(gs, rs, rtol=TOL, atol=TOL)
+        if len(rs) > 1:
+            gaps = np.abs(np.diff(rs))
+            clear = np.ones(len(rs), bool)
+            clear[:-1] &= gaps > TOL
+            clear[1:] &= gaps > TOL
+            if len(rs) == min(n, tds.item_count):
+                clear[-1] = False  # the cut-off may fall inside a tie
+            np.testing.assert_array_equal(gl.ids()[clear], rl.ids()[clear])
+        hist = matrix.row_items(gk.user_id)
+        if hist is None:
+            assert len(gl) == 0
+        else:
+            assert not np.isin(gl.ids(), hist.ids()).any()
+
+
+def test_use_ratings_fold_in_matches_jax():
+    # rating-weighted confidences: the serving engine gathers the CSR's
+    # rating values on the device as well as its columns
+    rng = np.random.default_rng(3)
+    u, i = synth_interactions(rng, n_users=120, n_items=200, nnz=8_000)
+    df = pd.DataFrame({"user_id": u, "item_id": i, "rating": rng.integers(1, 11, size=len(u)) / 2.0})
+    jds, tds = jax_from_df(df), from_interactions_df(df)
+    k = 8
+    items = (rng.standard_normal((jds.item_count, k)) * 0.3).astype(np.float32)
+    otor = (items.astype(np.float64).T @ items + 0.1 * np.eye(k)).astype(np.float32)
+    cfg = {"features": k, "use_ratings": True, "weight": 10.0}
+    params = {
+        "user_embeddings": (rng.standard_normal((jds.user_count, k)) * 0.3).astype(np.float32),
+        "item_embeddings": items,
+        "_OtOr": otor,
+    }
+    js = JaxImplicitMF(JaxImplicitMF.validate_config(cfg))
+    js.users, js.items = jds.users, jds.items
+    js.user_embeddings, js.item_embeddings, js._OtOr = params["user_embeddings"], items, otor
+    ts = ImplicitMFScorer.from_numpy(params, cfg, tds.users, tds.items, device="cpu")
+    users = jds.users.ids[::2]
+    ref = jax_device_recommend(js, users, 15, jds.interaction_matrix(), chunk=16)
+    got = device_recommend(ts, users, 15, tds.interaction_matrix(), chunk=16, device="cpu")
+    for (gk, gl), (rk, rl) in zip(got.items(), ref.items()):
+        assert gk.user_id == rk.user_id and len(gl) == len(rl)
+        np.testing.assert_allclose(gl.scores(), rl.scores(), rtol=TOL, atol=TOL)
+
+    # without its user table (trained with user_embeddings=False) neither
+    # package serves the scorer in batch
+    js.user_embeddings = None
+    ts.user_embeddings = None
+    with pytest.raises(TypeError):
+        jax_device_recommend(js, users, 15, jds.interaction_matrix())
+    with pytest.raises(TypeError):
+        device_recommend(ts, users, 15, tds.interaction_matrix(), device="cpu")
+
+
+def test_port_loads_no_jax():
+    code = """
+import sys
+import numpy as np, pandas as pd
+from lkpy_tpu_torch.batch.device import device_recommend
+from lkpy_tpu_torch.data import from_interactions_df
+from lkpy_tpu_torch.models.als import ImplicitMFScorer
+from lkpy_tpu_torch.ops.als import implicit_otor
+import torch
+rng = np.random.default_rng(0)
+ds = from_interactions_df(pd.DataFrame({"user_id": rng.integers(0, 40, 600), "item_id": rng.integers(0, 90, 600)}))
+items = rng.standard_normal((ds.item_count, 8)).astype(np.float32)
+params = {
+    "user_embeddings": rng.standard_normal((ds.user_count, 8)).astype(np.float32),
+    "item_embeddings": items,
+    "_OtOr": implicit_otor(torch.from_numpy(items), 0.1).numpy(),
+}
+scorer = ImplicitMFScorer.from_numpy(params, {"features": 8}, ds.users, ds.items, device="cpu")
+recs = device_recommend(scorer, ds.users.ids, 5, ds.interaction_matrix(), device="cpu")
+assert recs.total_items() > 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu"))
+print(",".join(bad))
+"""
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"the port loaded {out.stdout.strip()}"
