@@ -6,9 +6,10 @@ hand-written kernels live in ``csrc/`` and build at first use.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.  The port imports
 nothing of JAX or of ``lkpy_tpu``.
 
-The first slice is implicit-ALS batch serving:
-:func:`lkpy_tpu_torch.batch.device.device_recommend` with
-:class:`lkpy_tpu_torch.models.als.ImplicitMFScorer`.
+The ported slices are implicit-ALS training,
+:meth:`lkpy_tpu_torch.models.als.ImplicitMFScorer.train` with
+:class:`lkpy_tpu_torch.training.TrainingOptions`, and batch serving,
+:func:`lkpy_tpu_torch.batch.device.device_recommend`.
 """
 
 from lkpy_tpu_torch._device import resolve_device

@@ -1,15 +1,18 @@
 """
-Alternating least squares matrix factorization: implicit-feedback serving.
+Alternating least squares matrix factorization: implicit feedback.
 
-Port of the serving part of ``lkpy_tpu/models/als.py`` (reference:
-src/lenskit/als/_common.py:36,113, _implicit.py:35,133): the ALS configs,
-``ImplicitMFScorer`` with batched fold-in of user histories and
-``user_embeddings="prefer"``, and ``_fold_implicit_kernel``, the fold-in the
-batch serving engine runs on each block of users.
+Port of ``lkpy_tpu/models/als.py`` (reference: src/lenskit/als/_common.py:
+36,113,195, _implicit.py:35,133): the ALS configs, ``ImplicitMFScorer`` with
+its trainer and batched fold-in of user histories (``user_embeddings``
+``True``/``False``/``"prefer"``), and ``_fold_implicit_kernel``, the fold-in
+the batch serving engine runs on each block of users.
 
 The scorer is an ``nn.Module`` whose factor tables are buffers, so
-``scorer.to(device)`` moves them.  It is built from trained parameters with
-:meth:`ImplicitMFScorer.from_numpy`.
+``scorer.to(device)`` moves them.  ``scorer.train(data, options)`` trains it
+on the card (unless ``TrainingOptions(device="cpu")``) and leaves its tables
+there; :meth:`ImplicitMFScorer.from_numpy` builds one from parameters
+trained elsewhere.  ``scorer.train(True)``/``scorer.eval()`` keep their
+``nn.Module`` meaning.
 """
 
 from __future__ import annotations
@@ -22,10 +25,27 @@ from pydantic import AliasChoices, BaseModel, Field
 from torch import nn
 
 from lkpy_tpu_torch._device import resolve_device
-from lkpy_tpu_torch.data import Vocabulary
+from lkpy_tpu_torch.data import Dataset, Vocabulary
 from lkpy_tpu_torch.ops import als as als_ops
+from lkpy_tpu_torch.ops.sparse import bucket_rows
+from lkpy_tpu_torch.training import ModelTrainer, TrainingOptions, UsesTrainer
 
-__all__ = ["ALSConfig", "ImplicitMFConfig", "ImplicitMFScorer", "UIPair"]
+__all__ = [
+    "ALSBase",
+    "ALSConfig",
+    "ALSTrainerBase",
+    "ImplicitMFConfig",
+    "ImplicitMFScorer",
+    "ImplicitMFTrainer",
+    "LADDER_RATIO",
+    "UIPair",
+]
+
+#: ratio of the bucket-width ladder the trainers bucket rows with
+#: (:func:`lkpy_tpu_torch.ops.sparse.bucket_rows`); the JAX package's default
+#: ``TrainingPerfSettings.ladder_ratio`` (lkpy_tpu/config/__init__.py:126),
+#: kept here until the config layer is ported
+LADDER_RATIO = 1.35
 
 
 class UIPair(BaseModel):
@@ -74,19 +94,141 @@ class ALSConfig(BaseModel):
         return self.regularization
 
 
+def _f32(value, device: torch.device) -> torch.Tensor:
+    """A float32 tensor of ``value`` on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.tensor(np.asarray(value, dtype=np.float32), device=device)
+
+
+class ALSBase(UsesTrainer, nn.Module):
+    """Base ALS scorer (reference: als/_common.py:113), an ``nn.Module``
+    whose ``user_embeddings`` and ``item_embeddings`` are buffers."""
+
+    config: ALSConfig
+    users: Vocabulary | None
+    items: Vocabulary | None
+
+    def train(self, data=True, options: TrainingOptions | None = None):
+        """Train on ``data`` with ``options`` (the JAX package's entry point,
+        ``UsesTrainer.train``).  Called with a bool, as ``nn.Module.train``
+        and ``eval()`` call it, it sets the module's training mode instead
+        and returns the module."""
+        if isinstance(data, bool):
+            return nn.Module.train(self, data)
+        UsesTrainer.train(self, data, options)
+
+    @property
+    def is_trained(self) -> bool:
+        return self.item_embeddings is not None
+
+    @is_trained.setter
+    def is_trained(self, v):
+        pass
+
+    # ---- parameter container (reference: state/_container.py:14) ---------
+    def get_parameters(self) -> dict[str, torch.Tensor | None]:
+        return {"user_embeddings": self.user_embeddings, "item_embeddings": self.item_embeddings}
+
+    def load_parameters(self, state: dict[str, object], *, device: str | torch.device | None = None) -> None:
+        """Install ``user_embeddings`` (may be None) and ``item_embeddings``.
+        Tensors keep their device; arrays go to ``device`` (the card unless
+        ``device="cpu"``)."""
+        for name in ("user_embeddings", "item_embeddings"):
+            v = state[name]
+            if v is not None:
+                v = _f32(v, v.device if isinstance(v, torch.Tensor) else resolve_device(device))
+            setattr(self, name, v)
+
+
+class ALSTrainerBase(ModelTrainer):
+    """Half-epoch ALS driver (reference: als/_common.py:195, train_epoch :241).
+
+    The rows are bucketed and chunked once and stay on the training device
+    across epochs, with the factor tables."""
+
+    mode = "explicit"
+
+    def __init__(self, scorer: ALSBase, data: Dataset, options: TrainingOptions):
+        self.scorer = scorer
+        self.config = scorer.config
+        scorer.users = data.users
+        scorer.items = data.items
+        self.rng = options.random_generator()
+        self.device = options.configured_device()
+
+        ui_csr = self.prepare_matrix(data)
+        iu_csr = ui_csr.transpose()
+        self.u_buckets = als_ops.chunk_buckets(
+            bucket_rows(ui_csr, field="rating", ratio=LADDER_RATIO), device=self.device
+        )
+        self.i_buckets = als_ops.chunk_buckets(
+            bucket_rows(iu_csr, field="rating", ratio=LADDER_RATIO), device=self.device
+        )
+
+        # users first, then items: the JAX package draws them in this order
+        k = self.config.embedding_size
+        self.u_factors = _f32(self.initial_params(ui_csr.nrows, k), self.device)
+        self.i_factors = _f32(self.initial_params(ui_csr.ncols, k), self.device)
+
+    # subclass API ---------------------------------------------------------
+    def prepare_matrix(self, data: Dataset):
+        raise NotImplementedError
+
+    def initial_params(self, nrows: int, ncols: int) -> np.ndarray:
+        raise NotImplementedError
+
+    # epoch loop -----------------------------------------------------------
+    def train_epoch(self) -> torch.Tensor:
+        """Both halves of one epoch; returns the update delta as a device
+        scalar, so the host can queue the next epoch while this one runs."""
+        self.u_factors, self.i_factors, du, di = als_ops.als_epoch(
+            self.u_buckets,
+            self.i_buckets,
+            self.u_factors,
+            self.i_factors,
+            self.config.user_reg,
+            self.config.item_reg,
+            mode=self.mode,
+        )
+        return du + di
+
+    def _half_epoch(self, side: str) -> float:
+        if side == "user":
+            self.u_factors, delta = als_ops.als_half_epoch(
+                self.u_buckets, self.u_factors, self.i_factors, self.config.user_reg, mode=self.mode
+            )
+        else:
+            self.i_factors, delta = als_ops.als_half_epoch(
+                self.i_buckets, self.i_factors, self.u_factors, self.config.item_reg, mode=self.mode
+            )
+        return delta
+
+    def finalize(self):
+        self.scorer.item_embeddings = self.i_factors
+        self.scorer.user_embeddings = self.u_factors if self.config.user_embeddings else None
+
+    def get_parameters(self) -> dict[str, torch.Tensor]:
+        return {"user_factors": self.u_factors.clone(), "item_factors": self.i_factors.clone()}
+
+    def load_parameters(self, state: dict[str, object]) -> None:
+        """Factor tables as tensors or arrays (the JAX trainer's
+        ``get_parameters()`` too); they go to the training device."""
+        self.u_factors = _f32(state["user_factors"], self.device)
+        self.i_factors = _f32(state["item_factors"], self.device)
+
+
 class ImplicitMFConfig(ALSConfig):
     weight: float = 40.0
     use_ratings: bool = False
 
 
-class ImplicitMFScorer(nn.Module):
-    """Implicit-feedback MF, Hu et al. (reference: als/_implicit.py:35), for
-    batch serving.  Buffers: ``user_embeddings`` (n_users, k) or None,
-    ``item_embeddings`` (n_items, k) and ``_OtOr`` (k, k) = YᵀY + λI."""
+class ImplicitMFScorer(ALSBase):
+    """Implicit-feedback MF, Hu et al. (reference: als/_implicit.py:35).
+    Buffers: ``user_embeddings`` (n_users, k) or None, ``item_embeddings``
+    (n_items, k) and ``_OtOr`` (k, k) = YᵀY + λI."""
 
     config: ImplicitMFConfig
-    users: Vocabulary | None
-    items: Vocabulary | None
 
     def __init__(self, config: ImplicitMFConfig | dict | None = None, **kwargs):
         super().__init__()
@@ -127,10 +269,13 @@ class ImplicitMFScorer(nn.Module):
         for name in ("user_embeddings", "item_embeddings", "_OtOr"):
             arr = params.get(name)
             if arr is not None:
-                setattr(scorer, name, torch.tensor(np.asarray(arr, dtype=np.float32), device=dev))
+                setattr(scorer, name, _f32(arr, dev))
         if scorer.item_embeddings is None or scorer._OtOr is None:
             raise ValueError("from_numpy needs item_embeddings and _OtOr")
         return scorer
+
+    def create_trainer(self, data: Dataset, options: TrainingOptions) -> "ImplicitMFTrainer":
+        return ImplicitMFTrainer(self, data, options)
 
     @property
     def fold_in_needs_ratings(self) -> bool:
@@ -141,3 +286,28 @@ class ImplicitMFScorer(nn.Module):
         """``(kernel_fn, args)`` for the batch serving engine: ``kernel_fn``
         takes a block's (cols, vals, mask) followed by ``args``."""
         return _fold_implicit_kernel, (self.item_embeddings, self._OtOr, float(self.config.weight))
+
+
+class ImplicitMFTrainer(ALSTrainerBase):
+    mode = "implicit"
+
+    def prepare_matrix(self, data: Dataset):
+        matrix = data.interaction_matrix()
+        if self.config.use_ratings:
+            csr = matrix.csr("rating")
+            if csr.values is None:
+                raise ValueError("use_ratings=True but no ratings present")
+        else:
+            csr = matrix.csr(None)
+            csr = csr.with_values(np.ones(csr.nnz, dtype=np.float32))
+        return csr.with_values(csr.values * self.config.weight)
+
+    def initial_params(self, nrows: int, ncols: int) -> np.ndarray:
+        mat = self.rng.standard_normal((nrows, ncols)).astype(np.float32) * 0.01
+        return mat * mat
+
+    def finalize(self):
+        # OtOr is only needed for fold-in scoring, so it is computed here and
+        # not every epoch
+        super().finalize()
+        self.scorer._OtOr = als_ops.implicit_otor(self.i_factors, self.config.user_reg)

@@ -159,6 +159,12 @@ params = {
 scorer = ImplicitMFScorer.from_numpy(params, {"features": 8}, ds.users, ds.items, device="cpu")
 recs = device_recommend(scorer, ds.users.ids, 5, ds.interaction_matrix(), device="cpu")
 assert recs.total_items() > 0
+# the training slice: trainer, epochs, bucketing, the training solve
+import lkpy_tpu_torch.random, lkpy_tpu_torch.ops.sparse, lkpy_tpu_torch.ops.spd_solve_chunked
+from lkpy_tpu_torch.training import TrainingOptions
+trained = ImplicitMFScorer(features=8, epochs=2)
+trained.train(ds, TrainingOptions(rng=1, device="cpu"))
+assert device_recommend(trained, ds.users.ids, 5, ds.interaction_matrix(), device="cpu").total_items() > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu"))
 print(",".join(bad))
 """
