@@ -7,18 +7,26 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and a library
-   yardstick: the fold-in solve (``spd_solve``) and the training solve
-   (``spd_solve_chunked``).
+   yardstick: the fold-in solve (``spd_solve``), the training solve
+   (``spd_solve_chunked``) and the fused MIPS top-k (``mips_topk``).
 3. Makes bench.py's synthetic ML-20M-scale interactions (138k users x 27k
-   items, seed 42) once, and drives two paths of the port at full width
-   (``features=64``), each with the launch counters set to 0 just before it
-   and read just after:
+   items, seed 42) once, and drives the paths of the port at full width,
+   each with the launch counters set to 0 just before it and read just
+   after:
    - serving: ``device_recommend`` with fold-in of 16,384 users, random
-     factors, checked against a float64 NumPy/SciPy oracle and timed;
+     factors (``features=64``), checked against a float64 NumPy/SciPy oracle
+     and timed;
    - training: ``ImplicitMFScorer.train`` for 10 epochs on bench.py's
      training split, then epoch times, a profile of one epoch, a float64
      check of one user half-epoch, NDCG@10 on the held-out split through
-     ``device_recommend``, and the trained scorer served again with fold-in.
+     ``device_recommend``, and the trained scorer served again with fold-in;
+   - retrieval: ``retrieval_topk`` of 4,096 trained user rows against the
+     trained item table tiled to 500,000 items (bench.py's large catalog),
+     checked against float64 scores and timed;
+   - the explicit family: ``BiasedMFScorer.train`` (``features=50``) on
+     bench.py's synthetic ratings over the same split, hold-out RMSE through
+     the scorer against the bias-only RMSE, then ``device_recommend`` with
+     the explicit fold-in of 16,384 users against a float64 oracle.
 4. Prints one JSON line describing each kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -51,23 +59,81 @@ FEATURES = 64
 SERVE_USERS = 16_384
 SERVE_N = 100
 SERVE_CHUNK = 1024
+#: timed serving calls a phase: enough to show the host clock's spread
+SERVE_CALLS = 8
 EPOCHS = 10
 #: bench.py's quality bar for NDCG@10 on the held-out split (its C++ CPU
 #: baseline scores 0.2097 there)
 NDCG_MIN = 0.20
 
+# bench.py's explicit configuration (its section 5): 50 factors
+EXPLICIT_FEATURES = 50
+#: rows of the largest chunk of the training split (4 x 30,024 rows of width
+#: 120); both training phases check it against the chunks they were given
+LARGEST_CHUNK_ROWS = 30024
+
 #: (B, k) shapes of the fold-in solve's kernel phase: the serving block and
-#: batch at k=64, then ragged and extreme widths
-SPD_SHAPES = [(1024, 64), (16384, 64), (1000, 50), (7, 8), (333, 128), (64, 256)]
+#: batch at k=64, the explicit family's serving block at k=50, then ragged
+#: and extreme widths
+SPD_SHAPES = [(1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1000, 50), (7, 8), (333, 128), (64, 256)]
 SPD_MAIN_SHAPE = (SERVE_CHUNK, FEATURES)
+SPD_EXPLICIT_SHAPE = (SERVE_CHUNK, EXPLICIT_FEATURES)
 #: (N, k) shapes of the training solve's kernel phase: the largest chunk of
-#: the training split (4 x 30,024 rows of width 120), then the same widths
-CHUNKED_SHAPES = [(30024, 64), (16384, 64), (1000, 50), (7, 8), (333, 128), (64, 256)]
-CHUNKED_MAIN_SHAPE = (30024, FEATURES)
+#: the training split at the implicit and the explicit width, then the same
+#: widths as above
+CHUNKED_SHAPES = [
+    (LARGEST_CHUNK_ROWS, 64), (16384, 64), (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES), (1000, 50), (7, 8), (333, 128), (64, 256)
+]  # fmt: skip
+CHUNKED_MAIN_SHAPE = (LARGEST_CHUNK_ROWS, FEATURES)
+CHUNKED_EXPLICIT_SHAPE = (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES)
+
+# bench.py's large catalog: 500k items, a batch of 4,096 queries
+RETR_ITEMS = 500_000
+RETR_QUERIES = 4_096
+#: bench.py's history length of the large catalog's users: 100 of 500,000
+#: entries of a row are excluded
+EXCLUDE_PER_ROW = 100
+#: (B, N, D, k, variant) cases of the top-k kernel phase: the retrieval
+#: path's shape at both list lengths, bare, with an item bias and with an
+#: exclusion mask; the small catalog; a small batch; an odd shape
+TOPK_CASES = [
+    (RETR_QUERIES, RETR_ITEMS, FEATURES, k, variant) for k in (10, 64) for variant in ("bare", "bias", "exclude")
+] + [(1024, N_ITEMS, FEATURES, 10, "bare"), (64, RETR_ITEMS, FEATURES, 10, "bare"), (37, 1001, 48, 7, "bare")]
+TOPK_MAIN_CASE = (RETR_QUERIES, RETR_ITEMS, FEATURES, 10, "bare")
+#: rows the plain version and the float64 scores are timed and checked on
+#: where the whole batch would take too long
+TOPK_PLAIN_TIMED_ROWS = 512
+TOPK_F64_ROWS = 256
+#: catalog size of the tie-rule and empty-slot cases (78 item tiles)
+TOPK_EDGE_ITEMS = 20_000
+
+#: hold-out RMSE bounds of the explicit model on bench.py's synthetic
+#: ratings: the JAX package's recorded run scored 0.5782 against a bias-only
+#: 0.7424 there (BENCH_r05.json)
+RMSE_MAX = 0.65
+RMSE_MIN_GAIN = 0.08
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """The port's kernel wrappers by name; each counts its launches."""
+    from lkpy_tpu_torch.ops.mips_topk import mips_topk
+    from lkpy_tpu_torch.ops.spd_solve import spd_solve
+    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
+
+    return {"spd_solve": spd_solve, "spd_solve_chunked": spd_solve_chunked, "mips_topk": mips_topk}
+
+
+def zero_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
 def card_line() -> str:
@@ -112,14 +178,14 @@ def spd_inputs(rng: np.random.Generator, B: int, k: int, dev):
     return A.contiguous(), y
 
 
-def solve_kernel_phase(name, kernel, plain, shapes, main_shape, plain_tol: float, seed: int, dev) -> dict:
+def solve_kernel_phase(name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev) -> dict:
     """Hold one SPD-solve kernel against its plain version and a float64
     solve at each shape, time kernel, plain version and
     ``cholesky`` + ``cholesky_solve``, and check that a zero system gives
     non-finite output in its own row only.  Returns the main shape's row of
-    the kernels line."""
+    the kernels line, with the explicit path's shape under ``explicit``."""
     rng = np.random.default_rng(seed)
-    row = None
+    row = explicit = None
     for B, k in shapes:
         A, y = spd_inputs(rng, B, k, dev)
         x = kernel(A, y)
@@ -145,8 +211,11 @@ def solve_kernel_phase(name, kernel, plain, shapes, main_shape, plain_tol: float
             f"kernel {ms / bound_ms:.1f}x); vs plain max abs {abs_err:.3e} rel {rel_err:.3e}; "
             f"vs float64 {err64:.3e}; residual {resid:.3e}"
         )
+        measured = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         if (B, k) == main_shape:
-            row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            row = measured
+        if (B, k) == explicit_shape:
+            explicit = dict(shape=[B, k], **measured)
     # a zero system must give non-finite output, as the TPU kernels' do, and
     # leave the other systems alone (explicit ALS's padding rows have A = 0)
     A, y = spd_inputs(rng, 5, FEATURES, dev)
@@ -156,7 +225,7 @@ def solve_kernel_phase(name, kernel, plain, shapes, main_shape, plain_tol: float
     if torch.isfinite(x[[1, 3]]).any() or not torch.isfinite(x[[0, 2, 4]]).all():
         raise AssertionError(f"{name}: a zero system must give non-finite output, the others finite")
     log(f"{name} zero systems: non-finite output in their own rows only, as required")
-    return row
+    return dict(row, explicit=explicit)
 
 
 def synth_interactions(rng: np.random.Generator):
@@ -227,6 +296,16 @@ def check_lists(recs, csr, users_vocab, n: int):
             raise AssertionError(f"user {key.user_id}: a history item was recommended")
 
 
+def check_chunk_rows(trainer, k: int) -> None:
+    """The largest system batch a training run hands ``spd_solve_chunked``
+    (the rows of its largest chunk, at width ``k``) must be a shape that the
+    kernel phase held against the plain version."""
+    rows = max(c.cols.shape[1] for c in trainer.u_buckets + trainer.i_buckets)
+    if (rows, k) not in CHUNKED_SHAPES:
+        raise AssertionError(f"the largest chunk has {rows} rows at k={k}: not a shape of the kernel phase {CHUNKED_SHAPES}")
+    log(f"largest chunk: {rows} systems of width {k} a launch, a shape of the kernel phase")
+
+
 def profile_device(fn, wall_ms: float, label: str, top: int = 10, mark: str | None = None):
     """Profile one call of ``fn`` on the card; log device busy time, the
     device idle share against ``wall_ms`` (the mean unprofiled call) and
@@ -262,8 +341,6 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
     from lkpy_tpu_torch.data import from_interactions_df
     from lkpy_tpu_torch.models.als import ImplicitMFScorer
     from lkpy_tpu_torch.ops.als import implicit_otor
-    from lkpy_tpu_torch.ops.spd_solve import spd_solve
-    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
 
     t0 = time.perf_counter()
     ds = from_interactions_df(pd.DataFrame({"user_id": users, "item_id": items}))
@@ -283,13 +360,12 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
     serve = rng.choice(ds.users.ids, size=SERVE_USERS, replace=False)
 
     # the serving path: counts are read from this call alone
-    spd_solve.launches = 0
-    spd_solve_chunked.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     tw = time.perf_counter()
     recs = device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
     warm_s = time.perf_counter() - tw
-    launches = {"spd_solve": spd_solve.launches, "spd_solve_chunked": spd_solve_chunked.launches}
+    launches = read_counts()
     log(f"serving path: device_recommend of {SERVE_USERS} users, first call {warm_s:.3f}s; launches {launches}")
     if launches["spd_solve"] == 0:
         raise AssertionError("the serving path launched no spd_solve kernel")
@@ -321,7 +397,7 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
 
     torch.cuda.synchronize()
     times = []
-    for _ in range(3):
+    for _ in range(SERVE_CALLS):
         ts = time.perf_counter()
         device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
         times.append(time.perf_counter() - ts)
@@ -335,17 +411,16 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
     return launches
 
 
-def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, dict]:
+def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, dict, dict]:
     """The training path: ``ImplicitMFScorer.train`` on bench.py's split,
     checked, timed, profiled, and served.  Returns the launches of the
-    training run and of the fold-in serving of the trained scorer."""
+    training run and of the fold-in serving of the trained scorer, and the
+    trained scorer with the split and the generator for the later phases."""
     import pandas as pd
 
     from lkpy_tpu_torch.batch.device import device_recommend
     from lkpy_tpu_torch.data import from_interactions_df
     from lkpy_tpu_torch.models.als import ImplicitMFScorer
-    from lkpy_tpu_torch.ops.spd_solve import spd_solve
-    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
     from lkpy_tpu_torch.training import TrainingOptions
 
     t0 = time.perf_counter()
@@ -366,14 +441,13 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
 
     # the training path: counts are read from this call alone
     scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, user_embeddings="prefer")
-    spd_solve.launches = 0
-    spd_solve_chunked.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     tw = time.perf_counter()
     scorer.train(ds, TrainingOptions(rng=42))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - tw
-    launches = {"spd_solve": spd_solve.launches, "spd_solve_chunked": spd_solve_chunked.launches}
+    launches = read_counts()
     log(
         f"training path: ImplicitMFScorer.train, {EPOCHS} epochs, {train_s:.3f}s with set-up; launches {launches}, "
         f"{launches['spd_solve_chunked'] / EPOCHS:g} spd_solve_chunked launches per epoch"
@@ -389,6 +463,7 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     trainer = scorer.create_trainer(ds, TrainingOptions(rng=42))
     log("chunks: users " + str([tuple(c.cols.shape) for c in trainer.u_buckets]))
     log("chunks: items " + str([tuple(c.cols.shape) for c in trainer.i_buckets]))
+    check_chunk_rows(trainer, FEATURES)
     times, deltas = [], []
     for _ in range(EPOCHS):
         ts = time.perf_counter()
@@ -445,10 +520,9 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     fold.load_parameters(scorer.get_parameters())
     fold._OtOr, fold.users, fold.items = scorer._OtOr, scorer.users, scorer.items
     serve = np.random.default_rng(4).choice(ds.users.ids, size=SERVE_USERS, replace=False)
-    spd_solve.launches = 0
-    spd_solve_chunked.launches = 0
+    zero_counts()
     recs = device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
-    served = {"spd_solve": spd_solve.launches, "spd_solve_chunked": spd_solve_chunked.launches}
+    served = read_counts()
     log(f"trained scorer, fold-in serving of {SERVE_USERS} users: launches {served}")
     if served["spd_solve"] == 0:
         raise AssertionError("fold-in serving of the trained scorer launched no spd_solve kernel")
@@ -467,6 +541,404 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     )
     if score_err > 1e-3:
         raise AssertionError(f"trained fold-in check failed: score error {score_err}")
+    split = dict(scorer=scorer, tr_u=tr_u, tr_i=tr_i, test_u=test_u, test_i=test_i, rng=rng)
+    return launches, served, split
+
+
+def topk_bound(B: int, N: int, D: int, k: int, biased: bool, masked: bool) -> tuple[float, str]:
+    """Least time (ms) for a fused MIPS top-k: queries, items, bias and mask
+    read once, the (B, k) values and indices written once; 2·B·N·D f32
+    operations outside the tensor cores (the selection is not counted)."""
+    nbytes = 4 * (B * D + N * D) + 8 * B * k + (4 * N if biased else 0) + (B * N if masked else 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2.0 * B * N * D / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scores_at(q, items, bias, idx):
+    """f32 scores of the (B, k) item numbers ``idx`` (empty slots clamped)."""
+    safe = idx.long().clamp(max=items.shape[0] - 1)
+    s = torch.empty(idx.shape, dtype=torch.float32, device=q.device)
+    for lo in range(0, len(q), 1024):  # (rows, k, D) gathered rows at a time
+        s[lo : lo + 1024] = (q[lo : lo + 1024, None, :] * items[safe[lo : lo + 1024]]).sum(-1)
+    return s if bias is None else s + bias[safe]
+
+
+def check_topk(label, q, items, k, bias, excl, got) -> float:
+    """Hold a (values, indices) result against ``mips_topk_plain`` and
+    against float64 scores; raises on any breach.  Returns the largest
+    absolute difference of a value from the plain version's."""
+    from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, mips_topk_plain
+
+    gv, gi = got
+    pv, pi = mips_topk_plain(q, items, k, i_bias=bias, exclude=excl)
+    finite = torch.isfinite(pv)
+    if not torch.equal(torch.isfinite(gv), finite):
+        raise AssertionError(f"{label}: the empty slots differ from the plain version's")
+    if not ((gv[~finite] == -torch.inf).all() and (gi[~finite] == INT32_MAX).all()):
+        raise AssertionError(f"{label}: an empty slot must hold (-inf, INT32_MAX)")
+    if not (gv[:, :-1] >= gv[:, 1:]).all():
+        raise AssertionError(f"{label}: values are not in descending order")
+    # values: rtol 1e-5 / atol 1e-5 (the kernel sums over D in order, a library product does not)
+    diff = (gv - pv)[finite].abs()
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    if (diff > 1e-5 + 1e-5 * pv[finite].abs()).any():
+        raise AssertionError(f"{label}: kernel vs plain values differ by up to {max_abs}")
+    # indices: equal wherever both neighbouring ranks are more than 1e-4 away
+    w = torch.where(finite, pv, torch.zeros_like(pv))
+    gap = (w[:, :-1] - w[:, 1:]).abs()
+    clear = finite.clone()
+    clear[:, :-1] &= gap > 1e-4
+    clear[:, 1:] &= gap > 1e-4
+    clear[:, -1] = False  # the rank below the last is not known
+    mismatch = int((gi != pi)[clear].sum())
+    if mismatch:
+        raise AssertionError(f"{label}: {mismatch} indices differ from the plain version's at clear gaps")
+    # each value is the score of its index
+    at = scores_at(q, items, bias, gi)
+    off = (gv - at)[finite].abs()
+    if (off > 1e-5 + 1e-5 * at[finite].abs()).any():
+        raise AssertionError(f"{label}: a value is not the score of its index (off by {float(off.max())})")
+    # equal scores: the smaller index first; no index twice; no excluded item
+    tied = finite[:, 1:] & (gv[:, :-1] == gv[:, 1:])
+    if (gi[:, :-1] >= gi[:, 1:])[tied].any():
+        raise AssertionError(f"{label}: equal scores must come smaller index first")
+    srt = torch.sort(torch.where(finite, gi, -1 - torch.arange(k, device=gi.device, dtype=gi.dtype)), dim=1).values
+    if (srt[:, :-1] == srt[:, 1:]).any():
+        raise AssertionError(f"{label}: an item is listed twice")
+    if excl is not None and (excl.gather(1, gi.long().clamp(max=items.shape[0] - 1)) != 0)[finite].any():
+        raise AssertionError(f"{label}: an excluded item was returned")
+    # float64 scores of the first rows: every returned item within 1e-5 of the true k-th score
+    rows = min(TOPK_F64_ROWS, len(q))
+    s64 = q[:rows].double() @ items.double().T
+    if bias is not None:
+        s64 += bias.double()
+    if excl is not None:
+        s64.masked_fill_(excl[:rows] != 0, -torch.inf)
+    tv, ti = torch.topk(s64, min(k, items.shape[0]), dim=1)
+    got64 = s64.gather(1, gi[:rows].long().clamp(max=items.shape[0] - 1))
+    fin = finite[:rows]
+    if (got64 < tv[:, -1:] - 1e-5)[fin].any():
+        raise AssertionError(f"{label}: an item below the float64 top-{k} (by more than 1e-5) was returned")
+    hits = int(((gi[:rows, :, None] == ti[:, None, :]) & fin[:, :, None]).any(-1).sum())
+    recall = hits / max(int(torch.isfinite(tv).sum()), 1)
+    log(f"{label}: vs plain max abs {max_abs:.3e}, {int((gi != pi).sum())} indices differ (all at gaps <= 1e-4); "
+        f"float64 recall@{k} on {rows} rows {recall:.5f}")  # fmt: skip
+    return max_abs
+
+
+def topk_kernel_phase(dev) -> dict:
+    """Hold the fused MIPS top-k kernel against its plain version and float64
+    scores at each case, and time kernel, plain version (on fewer rows where
+    the batch is large) and ``torch.topk`` of the whole score matrix.
+    Returns the main case's row of the kernels line."""
+    from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, mips_topk, mips_topk_plain
+
+    rng = np.random.default_rng(9)
+    made: dict = {}
+    row = None
+    for B, N, D, k, variant in TOPK_CASES:
+        if D not in made:  # one table per depth, cut to each case's size
+            nq = max(c[0] for c in TOPK_CASES if c[2] == D)
+            ni = max(c[1] for c in TOPK_CASES if c[2] == D)
+            made[D] = (
+                torch.from_numpy(rng.standard_normal((nq, D), dtype=np.float32) * 0.35).to(dev),
+                torch.from_numpy(rng.standard_normal((ni, D), dtype=np.float32) * 0.35).to(dev),
+                torch.from_numpy(rng.standard_normal(ni, dtype=np.float32) * 0.3).to(dev),
+            )
+        q, items, bias = made[D][0][:B], made[D][1][:N], made[D][2][:N] if variant == "bias" else None
+        excl = None
+        if variant == "exclude":
+            # EXCLUDE_PER_ROW random items of each row, and the row's five best, so that the mask matters
+            excl = torch.zeros((B, N), dtype=torch.bool, device=dev)
+            excl.scatter_(1, torch.from_numpy(rng.integers(0, N, size=(B, EXCLUDE_PER_ROW))).to(dev), True)
+            excl.scatter_(1, mips_topk(q, items, 5)[1].long(), True)
+        label = f"mips_topk B={B} N={N} D={D} k={k} {variant}"
+        got = mips_topk(q, items, k, i_bias=bias, exclude=excl)
+        torch.cuda.synchronize()
+        max_abs = check_topk(label, q, items, k, bias, excl, got)
+        ms = cuda_ms(lambda: mips_topk(q, items, k, i_bias=bias, exclude=excl), reps=20)
+        prow = min(B, TOPK_PLAIN_TIMED_ROWS)
+        plain_ms = cuda_ms(
+            lambda: mips_topk_plain(q[:prow], items, k, i_bias=bias, exclude=None if excl is None else excl[:prow]),
+            reps=1,
+            warm=0,
+        )
+
+        def library():
+            s = q @ items.T
+            if bias is not None:
+                s += bias
+            if excl is not None:
+                s.masked_fill_(excl, -torch.inf)
+            return torch.topk(s, k, dim=1)
+
+        lib_ms = cuda_ms(library, reps=3, warm=1)
+        bound_ms, bound_by = topk_bound(B, N, D, k, bias is not None, excl is not None)
+        tf32_ms = 2.0 * B * N * D / 495e12 * 1e3
+        log(
+            f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {prow} rows, torch.topk(q @ I.T) {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, kernel {ms / bound_ms:.2f}x; the TF32 tensor-core rate would give "
+            f"{tf32_ms:.4f} ms)"
+        )
+        if (B, N, D, k, variant) == TOPK_MAIN_CASE:
+            row = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_rows=prow, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms,
+            )  # fmt: skip
+        del excl, got
+
+    # duplicated item rows: equal scores come smaller index first, also across tiles
+    half = TOPK_EDGE_ITEMS // 2
+    q, items = made[FEATURES][0][:64], made[FEATURES][1][: 2 * half].clone()
+    items[half:] = items[:half]
+    gv, gi = mips_topk(q, items, 16)
+    check_topk("mips_topk duplicated item rows", q, items, 16, None, None, (gv, gi))
+    if not (torch.equal(gi, mips_topk_plain(q, items, 16)[1]) and torch.equal(gi[:, 1::2], gi[:, 0::2] + half)):
+        raise AssertionError("mips_topk: a duplicated row must follow its original, as in the plain version")
+    # a row wholly excluded, a row with three scoreable items, k past the catalog
+    excl = torch.zeros((64, 2 * half), dtype=torch.int8, device=dev)
+    excl[0] = 1
+    excl[1, 3:] = 1
+    gv, gi = mips_topk(q, items, 8, exclude=excl)
+    check_topk("mips_topk excluded rows", q, items, 8, None, excl, (gv, gi))
+    if not ((gi[0] == INT32_MAX).all() and (gi[1, 3:] == INT32_MAX).all() and sorted(gi[1, :3].tolist()) == [0, 1, 2]):
+        raise AssertionError("mips_topk: empty slots of excluded rows are wrong")
+    gv, gi = mips_topk(q, items[:5], 9)
+    check_topk("mips_topk k past the catalog", q, items[:5], 9, None, None, (gv, gi))
+    if not (torch.isfinite(gv[:, :5]).all() and (gi[:, 5:] == INT32_MAX).all()):
+        raise AssertionError("mips_topk: k past the catalog must leave empty slots")
+    log("mips_topk tie rule, excluded rows and k past the catalog: as required")
+    return row
+
+
+def retrieval_phase(dev, scorer, rng: np.random.Generator) -> dict:
+    """The retrieval path: ``retrieval_topk`` of trained user rows against
+    bench.py's large catalog (the trained item table tiled with jitter)."""
+    from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, retrieval_topk
+
+    i_np = scorer.item_embeddings.cpu().numpy()
+    reps = -(-RETR_ITEMS // len(i_np))
+    jitter = rng.normal(0, 0.02 * np.abs(i_np).mean(), size=(RETR_ITEMS, i_np.shape[1])).astype(np.float32)
+    items = torch.from_numpy(np.tile(i_np, (reps, 1))[:RETR_ITEMS] + jitter).to(dev)
+    pick = np.sort(rng.choice(scorer.user_embeddings.shape[0], size=RETR_QUERIES, replace=False))
+    q = scorer.user_embeddings[torch.from_numpy(pick).to(dev)].contiguous()
+    # an item bias of a tenth of the scores' size
+    scale = 0.1 * float((q[:64] @ items[:4096].T).abs().mean())
+    bias = torch.from_numpy(rng.normal(0, scale, RETR_ITEMS).astype(np.float32)).to(dev)
+    large = RETR_ITEMS >= FUSED_RETRIEVAL_MIN_ITEMS
+    log(f"retrieval: {RETR_QUERIES} trained user rows x {RETR_ITEMS} items (the trained table of {len(i_np)} tiled with jitter)")
+
+    # the retrieval path: counts are read from these calls alone
+    zero_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    results = {
+        "k=10": retrieval_topk(q, items, 10),
+        "k=64": retrieval_topk(q, items, 64, exact=False),
+        "k=10 with bias": retrieval_topk(q, items, 10, i_bias=bias),
+    }
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - tw
+    launches = read_counts()
+    log(f"retrieval path: 3 retrieval_topk calls, {first_s:.3f}s; launches {launches}")
+    if large and launches["mips_topk"] != 3:
+        raise AssertionError(f"the retrieval path must launch mips_topk once a call, counted {launches['mips_topk']}")
+
+    # float64 scores on the first rows: every returned item within 1e-5 of the true k-th score
+    rows = min(TOPK_F64_ROWS, RETR_QUERIES)
+    for name, (v, ix) in results.items():
+        k = v.shape[1]
+        if v.shape != (RETR_QUERIES, k) or ix.dtype != torch.int32 or not torch.isfinite(v).all():
+            raise AssertionError(f"retrieval {name}: bad result {tuple(v.shape)} {ix.dtype}")
+        if not (v[:, :-1] >= v[:, 1:]).all():
+            raise AssertionError(f"retrieval {name}: scores not descending")
+        s64 = q[:rows].double() @ items.double().T
+        if "bias" in name:
+            s64 += bias.double()
+        tv, ti = torch.topk(s64, k, dim=1)
+        got64 = s64.gather(1, ix[:rows].long())
+        recall = float((ix[:rows, :, None] == ti[:, None, :]).any(-1).float().mean())
+        err = float((v[:rows].double() - got64).abs().max() / tv.abs().max())
+        log(f"retrieval {name} vs float64 ({rows} queries): recall@{k} {recall:.5f}, max relative score error {err:.3e}")
+        if (got64 < tv[:, -1:] - 1e-5).any() or err > 1e-5:
+            raise AssertionError(f"retrieval {name}: float64 check failed (recall {recall}, score error {err})")
+        del s64
+
+    for k in (10, 64):
+        times = []
+        for _ in range(8):
+            ts = time.perf_counter()
+            retrieval_topk(q, items, k)[1].cpu()
+            times.append(time.perf_counter() - ts)
+        log(
+            f"retrieval k={k}: {RETR_QUERIES} queries per call, 8 calls with readback {sum(times):.4f}s -> "
+            f"{RETR_QUERIES * 8 / sum(times):.4e} queries/s (min call {min(times) * 1e3:.3f} ms, max {max(times) * 1e3:.3f} ms)"
+        )
+
+    # the routes beside the kernel: a list longer than the kernel takes, and the small catalog
+    before = read_counts()["mips_topk"]
+    ts = time.perf_counter()
+    v100, i100 = retrieval_topk(q, items, 100)
+    i100.cpu()
+    t100 = time.perf_counter() - ts
+    small = items[:N_ITEMS].contiguous()
+    vs, ixs = retrieval_topk(q, small, 10)
+    torch.cuda.synchronize()
+    if read_counts()["mips_topk"] != before:
+        raise AssertionError("k=100 and the small catalog must not launch the kernel")
+    if not (torch.equal(i100[:, :10], results["k=10"][1]) or (v100[:, :10] - results["k=10"][0]).abs().max() < 1e-4):
+        raise AssertionError("k=100 (torch.topk route) disagrees with the kernel's top 10")
+    ref = torch.topk(q @ small.T, 10, dim=1)
+    if not torch.equal(vs, ref.values):
+        raise AssertionError("small-catalog route must be the product and torch.topk")
+    log(f"retrieval k=100 (product + torch.topk in row chunks, 0 launches): one call {t100:.4f}s; {N_ITEMS}-item call: 0 launches")
+    return launches
+
+
+def explicit_ratings(rng: np.random.Generator, n_users: int, n_items: int):
+    """bench.py's synthetic ratings (its section 5): per-item quality, per-user
+    shift, a planted rank-8 interaction and noise, clipped to [0.5, 5]."""
+    q_i = rng.normal(0, 0.5, size=n_items).astype(np.float32)
+    s_u = rng.normal(0, 0.3, size=n_users).astype(np.float32)
+    Up = rng.normal(0, 1, size=(n_users, 8)).astype(np.float32)
+    Vp = rng.normal(0, 1, size=(n_items, 8)).astype(np.float32)
+
+    def true_r(uu, ii):
+        low = np.sum(Up[uu] * Vp[ii], axis=1) * (0.6 / np.sqrt(8))
+        noise = rng.normal(0, 0.5, size=len(uu)).astype(np.float32)
+        return np.clip(3.5 + q_i[ii] + s_u[uu] + low + noise, 0.5, 5.0).astype(np.float32)
+
+    return true_r
+
+
+def explicit_oracle_topn(hist, ratings, Y, b_i, g, damping, reg, n):
+    """Float64 explicit fold-in for one user (bias removal, damped user bias,
+    ridge solve), scoring with global + item + user bias, history masking and
+    top-n."""
+    resid = ratings - g - b_i[hist]
+    ub = resid.sum() / (len(hist) + damping)
+    G = Y[hist]
+    u = np.linalg.solve(G.T @ G + reg * len(hist) * np.eye(Y.shape[1]), G.T @ (resid - ub))
+    s = Y @ u + g + b_i + ub
+    s[hist] = -np.inf
+    return np.argsort(-s, kind="stable")[:n], s
+
+
+def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, dict]:
+    """The explicit family: ``BiasedMFScorer.train`` on bench.py's synthetic
+    ratings over the training split, hold-out RMSE through the scorer, then
+    ``device_recommend`` with the explicit fold-in.  Returns the launches of
+    the training run and of the serving call."""
+    import pandas as pd
+
+    from lkpy_tpu_torch.batch.device import device_recommend
+    from lkpy_tpu_torch.data import ItemList, from_interactions_df
+    from lkpy_tpu_torch.models.als import BiasedMFScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    t0 = time.perf_counter()
+    tr_u, tr_i, test_u, test_i = split["tr_u"], split["tr_i"], split["test_u"], split["test_i"]
+    true_r = explicit_ratings(rng, N_USERS, N_ITEMS)
+    ratings, test_r = true_r(tr_u, tr_i), true_r(test_u, test_i)
+    ds = from_interactions_df(pd.DataFrame({"user_id": tr_u, "item_id": tr_i, "rating": ratings}))
+    matrix = ds.interaction_matrix()
+    csr = matrix.csr("rating")
+    log(f"explicit ratings: {len(ratings)} training, {len(test_r)} held-out, mean {ratings.mean():.4f} ({time.perf_counter() - t0:.1f}s to build)")
+
+    # the explicit training path: counts are read from this call alone
+    scorer = BiasedMFScorer(features=EXPLICIT_FEATURES, epochs=EPOCHS, regularization=0.1, damping=5.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    scorer.train(ds, TrainingOptions(rng=42))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - tw
+    launches = read_counts()
+    trainer = scorer.create_trainer(ds, TrainingOptions(rng=42))
+    per_epoch = sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets)
+    check_chunk_rows(trainer, EXPLICIT_FEATURES)
+    log(
+        f"explicit training path: BiasedMFScorer.train, k={EXPLICIT_FEATURES}, {EPOCHS} epochs, {train_s:.3f}s with set-up "
+        f"(bias fit included); launches {launches}; {per_epoch} chunks per epoch"
+    )
+    if launches["spd_solve_chunked"] != per_epoch * EPOCHS:
+        raise AssertionError(f"explicit training must launch spd_solve_chunked once a chunk: {launches}, {per_epoch} chunks")
+    for name in ("user_embeddings", "item_embeddings"):
+        t = getattr(scorer, name)
+        if t.device.type != dev.type or not torch.isfinite(t).all():
+            raise AssertionError(f"trained {name} must be finite and on {dev} ({t.device})")
+    times = []
+    for _ in range(EPOCHS):
+        ts = time.perf_counter()
+        delta = float(trainer.train_epoch())
+        times.append(time.perf_counter() - ts)
+        if not np.isfinite(delta):
+            raise AssertionError("non-finite explicit epoch delta")
+    steady = times[1:] or times
+    log(
+        f"explicit epochs 2-{EPOCHS}: mean {np.mean(steady) * 1e3:.3f} ms, min {min(steady) * 1e3:.3f} ms, max "
+        f"{max(steady) * 1e3:.3f} ms -> {2 * len(tr_u) * len(steady) / sum(steady):.4e} examples/s"
+    )
+    profile_device(lambda: trainer.train_epoch(), float(np.mean(steady)) * 1e3, "one explicit epoch", mark="spd_solve_chunked")
+
+    # hold-out RMSE of clipped predictions through the scorer, beside the bias model's
+    tq = time.perf_counter()
+    order = np.argsort(test_u, kind="stable")
+    bounds = np.flatnonzero(np.diff(test_u[order])) + 1
+    sq_mf = sq_bias = 0.0
+    for rows in np.split(order, bounds):
+        uid = test_u[rows[0]]
+        cand = ItemList(item_ids=test_i[rows])
+        pred = scorer(uid, cand).scores()
+        base, _ = scorer.bias.compute_for_items(cand, uid)
+        if not np.isfinite(pred).all():
+            raise AssertionError(f"user {uid}: non-finite prediction")
+        sq_mf += float(np.sum((np.clip(pred, 0.5, 5.0) - test_r[rows]) ** 2))
+        sq_bias += float(np.sum((np.clip(base, 0.5, 5.0) - test_r[rows]) ** 2))
+    rmse, rmse_bias = np.sqrt(sq_mf / len(test_r)), np.sqrt(sq_bias / len(test_r))
+    log(
+        f"explicit hold-out RMSE through the scorer: {rmse:.4f} (bias only {rmse_bias:.4f}; "
+        f"{len(bounds) + 1} users, {time.perf_counter() - tq:.1f}s)"
+    )
+    if not (rmse <= RMSE_MAX and rmse <= rmse_bias - RMSE_MIN_GAIN):
+        raise AssertionError(f"explicit RMSE {rmse} (bias only {rmse_bias}) misses its bounds")
+
+    # the explicit serving path: fold-in of 16,384 users, counts from this call alone
+    serve = np.random.default_rng(5).choice(ds.users.ids, size=SERVE_USERS, replace=False)
+    zero_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    recs = device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+    first_s = time.perf_counter() - tw
+    served = read_counts()
+    log(f"explicit serving path: device_recommend of {SERVE_USERS} users with fold-in, first call {first_s:.3f}s; launches {served}")
+    if served["spd_solve"] == 0:
+        raise AssertionError("explicit fold-in serving launched no spd_solve kernel")
+    if len(recs) != SERVE_USERS:
+        raise AssertionError(f"{len(recs)} lists for {SERVE_USERS} users")
+    check_lists(recs, csr, ds.users, SERVE_N)
+    Y = scorer.item_embeddings.double().cpu().numpy()
+    b_i = scorer.bias.item_biases.astype(np.float64)
+    hits, score_err = 0, 0.0
+    for uid in serve[:256]:
+        il = recs.lookup(uid)
+        s, e = csr.row_extent(ds.users.number(uid))
+        top, sc = explicit_oracle_topn(
+            csr.colind[s:e], csr.values[s:e].astype(np.float64), Y, b_i, scorer.bias.global_bias, 5.0, 0.1, SERVE_N
+        )
+        hits += len(np.intersect1d(il.numbers(), top))
+        score_err = max(score_err, float(np.abs(il.scores() - sc[il.numbers()]).max() / np.abs(sc[top]).max()))
+    recall = hits / (256 * SERVE_N)
+    log(f"explicit fold-in vs float64 (256 users): recall@{SERVE_N} {recall:.5f}, max relative score error {score_err:.3e}")
+    if recall < 0.99 or score_err > 1e-3:
+        raise AssertionError(f"explicit fold-in check failed: recall {recall}, score error {score_err}")
+    times = []
+    for _ in range(SERVE_CALLS):
+        ts = time.perf_counter()
+        device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+        times.append(time.perf_counter() - ts)
+    log(f"explicit serving: {SERVE_USERS} users per call, calls {times} s -> queries/s {[SERVE_USERS / t for t in times]}")
     return launches, served
 
 
@@ -479,6 +951,9 @@ def main() -> int:
     from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
 
+    missing = {"mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
+    if missing:
+        raise AssertionError(f"kernel sources missing from the checkout: {sorted(missing)}")
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -504,10 +979,12 @@ def main() -> int:
         build_s = dict(zip(names, pool.map(timed_load, names)))
     log(f"build: {build_s} ({time.perf_counter() - t0:.2f}s in all)")
 
-    spd = solve_kernel_phase("spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, 1e-4, 7, dev)
+    spd = solve_kernel_phase("spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, 1e-4, 7, dev)
     chunked = solve_kernel_phase(
-        "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES, CHUNKED_MAIN_SHAPE, 1e-5, 8, dev
-    )
+        "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES, CHUNKED_MAIN_SHAPE,
+        CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev,
+    )  # fmt: skip
+    topk = topk_kernel_phase(dev)
 
     # bench.py's interactions, made once; each path continues the generator
     # from the state it had right after them, as bench.py does
@@ -523,9 +1000,22 @@ def main() -> int:
         return g
 
     serving = slice_phase(dev, users, items, continued())
-    training, served = training_phase(dev, users, items, continued())
+    training, served, split = training_phase(dev, users, items, continued())
+    # the later phases draw on from the generator where the split left it, as bench.py does
+    retrieval = retrieval_phase(dev, split["scorer"], split["rng"])
+    explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
 
-    paths = {"serving": serving, "training": training, "serving_trained": served}
+    paths = {
+        "serving": serving,
+        "training": training,
+        "serving_trained": served,
+        "retrieval": retrieval,
+        "explicit_training": explicit_training,
+        "explicit_serving": explicit_serving,
+    }
+    for path, kernel in [("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_serving", "spd_solve")]:
+        if paths[path][kernel] == 0:
+            raise AssertionError(f"the {path} path launched no {kernel} kernel")
     kernels = [
         dict(
             name="spd_solve",
@@ -544,6 +1034,15 @@ def main() -> int:
             launches=training["spd_solve_chunked"],
             launches_by_path={p: c["spd_solve_chunked"] for p, c in paths.items()},
             **chunked,
+        ),
+        dict(
+            name="mips_topk",
+            route="cuda",
+            source="lkpy_tpu_torch/csrc/mips_topk.cu",
+            replaces="lkpy_tpu/ops/pallas_topk.py:62",
+            launches=retrieval["mips_topk"],
+            launches_by_path={p: c["mips_topk"] for p, c in paths.items()},
+            **topk,
         ),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s after the start of the checks")

@@ -25,6 +25,7 @@ __all__ = [
     "device_recommend",
     "device_recommend_async",
     "invalidate_device_cache",
+    "supports_device_batch",
 ]
 
 _dev_cache: dict = {}
@@ -55,11 +56,21 @@ def _cached_device(arr, device: torch.device) -> torch.Tensor:
     if hit is not None and hit[0]() is arr:
         return hit[1]
     dev = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-    ref = weakref.ref(arr, lambda _r, key=key: _dev_cache.pop(key, None))
+    # the cache is bound here: at interpreter exit the module's globals are gone before the last arrays
+    ref = weakref.ref(arr, lambda _r, key=key, cache=_dev_cache: cache.pop(key, None))
     while len(_dev_cache) >= _DEV_CACHE_MAX:
         _dev_cache.pop(next(iter(_dev_cache)))
     _dev_cache[key] = (ref, dev)
     return dev
+
+
+def supports_device_batch(scorer) -> bool:
+    """Whether :func:`device_recommend` can serve ``scorer``."""
+    try:
+        arrays = _extract_arrays(scorer)
+    except (AttributeError, TypeError):
+        return False
+    return arrays is not None
 
 
 def _extract_arrays(scorer) -> dict | None:
@@ -72,7 +83,13 @@ def _extract_arrays(scorer) -> dict | None:
         # with user_embeddings=False) is not served in batch
         if scorer.user_embeddings is None or scorer.item_embeddings is None:
             return None
-        return {"u_embed": scorer.user_embeddings, "i_embed": scorer.item_embeddings}
+        out = {"u_embed": scorer.user_embeddings, "i_embed": scorer.item_embeddings}
+        bias = getattr(scorer, "bias", None)
+        if bias is not None and getattr(bias, "user_biases", None) is not None:
+            out["u_bias"] = bias.user_biases
+            out["i_bias"] = bias.item_biases
+            out["offset"] = bias.global_bias
+        return out
     return None
 
 

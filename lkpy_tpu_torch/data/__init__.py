@@ -9,6 +9,7 @@ from lkpy_tpu_torch.data.collection import ArrayTopNILC, ItemListCollection
 from lkpy_tpu_torch.data.dataset import Dataset, EntitySet, MatrixRelationshipSet, RelationshipSet
 from lkpy_tpu_torch.data.items import ItemList
 from lkpy_tpu_torch.data.matrix import COO, CSR
+from lkpy_tpu_torch.data.query import QueryInput, RecQuery
 from lkpy_tpu_torch.data.vocab import Vocabulary
 
 __all__ = [
@@ -21,6 +22,8 @@ __all__ = [
     "ItemList",
     "ItemListCollection",
     "MatrixRelationshipSet",
+    "QueryInput",
+    "RecQuery",
     "RelationshipSet",
     "Vocabulary",
     "from_interactions_df",

@@ -38,6 +38,7 @@ class ItemList:
     An immutable list of items with optional attached data.
 
     Args:
+        source: another item list to copy and extend.
         item_ids: item IDs.
         item_nums: item numbers (requires ``vocabulary`` to resolve to IDs).
         vocabulary: the item vocabulary.
@@ -49,6 +50,7 @@ class ItemList:
 
     def __init__(
         self,
+        source: "ItemList | None" = None,
         *,
         item_ids=None,
         item_nums=None,
@@ -58,15 +60,27 @@ class ItemList:
         rank=None,
         **fields,
     ):
-        self._vocab = vocabulary
-        self._ids = None
-        self._nums = None
-        self._fields: dict[str, np.ndarray] = {}
+        if source is not None:
+            self._ids = source._ids
+            self._nums = source._nums
+            self._vocab = source._vocab
+            self._fields = dict(source._fields)
+            self.ordered = source.ordered
+        else:
+            self._ids = None
+            self._nums = None
+            self._vocab = None
+            self._fields: dict[str, np.ndarray] = {}
+            self.ordered = False
+        if vocabulary is not None:
+            self._vocab = vocabulary
         if item_ids is not None:
             ids = _np_field(item_ids)
             if ids.ndim != 1:
                 raise TypeError(f"item_ids must be 1-D (got {ids.ndim}-D)")
             self._ids = ids.astype(str) if ids.dtype == object else ids
+            # inherited numbers no longer belong to these IDs
+            self._nums = None
         if item_nums is not None:
             nums = _np_field(item_nums)
             if nums.ndim != 1:
@@ -87,7 +101,8 @@ class ItemList:
         if rank is not None:
             self._fields["rank"] = _np_field(rank).astype(np.int32)
             ordered = True if ordered is None else ordered
-        self.ordered = bool(ordered)
+        if ordered is not None:
+            self.ordered = bool(ordered)
         for name, data in fields.items():
             if data is not None:
                 self._fields[name] = _np_field(data)

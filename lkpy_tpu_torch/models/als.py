@@ -1,17 +1,19 @@
 """
-Alternating least squares matrix factorization: implicit feedback.
+Alternating least squares matrix factorization.
 
 Port of ``lkpy_tpu/models/als.py`` (reference: src/lenskit/als/_common.py:
-36,113,195, _implicit.py:35,133): the ALS configs, ``ImplicitMFScorer`` with
-its trainer and batched fold-in of user histories (``user_embeddings``
-``True``/``False``/``"prefer"``), and ``_fold_implicit_kernel``, the fold-in
-the batch serving engine runs on each block of users.
+36,113,195, _explicit.py:32,94, _implicit.py:35,133): the ALS configs,
+``BiasedMFScorer`` (explicit, bias-normalized) and ``ImplicitMFScorer`` (Hu
+et al. confidence weighting) with their trainers, per-query scoring with
+fold-in of a user's history (``user_embeddings`` ``True``/``False``/
+``"prefer"``), and ``_fold_explicit_kernel``/``_fold_implicit_kernel``, the
+fold-ins the batch serving engine runs on each block of users.
 
-The scorer is an ``nn.Module`` whose factor tables are buffers, so
+A scorer is an ``nn.Module`` whose factor tables are buffers, so
 ``scorer.to(device)`` moves them.  ``scorer.train(data, options)`` trains it
 on the card (unless ``TrainingOptions(device="cpu")``) and leaves its tables
-there; :meth:`ImplicitMFScorer.from_numpy` builds one from parameters
-trained elsewhere.  ``scorer.train(True)``/``scorer.eval()`` keep their
+there; each scorer's ``from_numpy`` builds one from parameters trained
+elsewhere.  ``scorer.train(True)``/``scorer.eval()`` keep their
 ``nn.Module`` meaning.
 """
 
@@ -24,8 +26,10 @@ import torch
 from pydantic import AliasChoices, BaseModel, Field
 from torch import nn
 
+from lkpy_tpu_torch._config import validated_config
 from lkpy_tpu_torch._device import resolve_device
-from lkpy_tpu_torch.data import Dataset, Vocabulary
+from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
+from lkpy_tpu_torch.models.bias import BiasModel, entity_damping
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.sparse import bucket_rows
 from lkpy_tpu_torch.training import ModelTrainer, TrainingOptions, UsesTrainer
@@ -34,6 +38,9 @@ __all__ = [
     "ALSBase",
     "ALSConfig",
     "ALSTrainerBase",
+    "BiasedMFConfig",
+    "BiasedMFScorer",
+    "BiasedMFTrainer",
     "ImplicitMFConfig",
     "ImplicitMFScorer",
     "ImplicitMFTrainer",
@@ -73,6 +80,30 @@ def _fold_implicit_kernel(cols, vals, mask, i_emb, OtOr, weight: float):
     return u, None
 
 
+def _fold_explicit_kernel(cols, vals, mask, i_emb, i_bias, gbias: float, damping: float, reg: float):
+    """Vectorized explicit fold-in with bias removal
+    (reference: als/_explicit.py:94 + _train_bias_row_cholesky:121).
+
+    Args:
+        cols: (B, H) int64 padded history item numbers.
+        vals: (B, H) f32 ratings.
+        mask: (B, H) bool validity.
+
+    Returns:
+        (user embeddings (B, k), damped user biases (B,)).  A row without
+        history has a singular system (A = 0) and gets a non-finite
+        embedding, as in the JAX package; the serving engine gives such a
+        user an empty list.
+    """
+    m = mask.to(torch.float32)
+    resid = (vals - gbias - i_bias[cols]) * m
+    n_u = m.sum(dim=1)
+    ub = resid.sum(dim=1) / (n_u + damping)
+    resid = (resid - ub[:, None]) * m
+    u = als_ops.solve_explicit_bucket(cols, resid, mask, i_emb, reg)
+    return u, ub
+
+
 class ALSConfig(BaseModel):
     """ALS configuration (reference: als/_common.py:36)."""
 
@@ -101,6 +132,13 @@ def _f32(value, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(value, dtype=np.float32), device=device)
 
 
+def _rows(table: torch.Tensor, nums) -> np.ndarray:
+    """Rows ``nums`` of a factor table, gathered where the table lies and
+    brought to the host."""
+    idx = torch.as_tensor(np.asarray(nums, dtype=np.int64), device=table.device)
+    return table[idx].cpu().numpy()
+
+
 class ALSBase(UsesTrainer, nn.Module):
     """Base ALS scorer (reference: als/_common.py:113), an ``nn.Module``
     whose ``user_embeddings`` and ``item_embeddings`` are buffers."""
@@ -125,6 +163,63 @@ class ALSBase(UsesTrainer, nn.Module):
     @is_trained.setter
     def is_trained(self, v):
         pass
+
+    def __call__(self, query: QueryInput, items: ItemList) -> ItemList:
+        """Score ``items`` for one query on the host: the user's row of the
+        table, or a fold-in of the query's history (``user_items``) unless
+        ``user_embeddings="prefer"``.  Unknown items, and every item for a
+        user without row and history, score NaN."""
+        query = RecQuery.create(query)
+        user_num = None
+        if query.user_id is not None and self.users is not None:
+            user_num = self.users.number(query.user_id, missing="negative")
+            if user_num < 0:
+                user_num = None
+
+        u_offset = None
+        u_feat = None
+        if query.user_items is not None and len(query.user_items) > 0 and self.config.user_embeddings != "prefer":
+            u_feat, u_offset = self.new_user_embedding(user_num, query.user_items)
+
+        if u_feat is None:
+            if user_num is None or self.user_embeddings is None:
+                return ItemList(items, scores=np.full(len(items), np.nan, dtype=np.float32))
+            u_feat = _rows(self.user_embeddings, [user_num])[0]
+
+        item_nums = items.numbers(vocabulary=self.items, missing="negative")
+        mask = item_nums >= 0
+        scores = np.full(len(items), np.nan, dtype=np.float32)
+        scores[mask] = _rows(self.item_embeddings, item_nums[mask]) @ u_feat
+        return self.finalize_scores(user_num, ItemList(items, scores=scores), u_offset)
+
+    def new_user_embedding(self, user_num, items: ItemList) -> tuple[np.ndarray | None, float | None]:
+        raise NotImplementedError
+
+    def finalize_scores(self, user_num, items: ItemList, user_bias: float | None) -> ItemList:
+        return items
+
+    def device_fold_in(self, cols, vals, mask):
+        """
+        Batched fold-in user embeddings for device batch scoring (the
+        vectorized form of ``new_user_embedding``).
+
+        Args:
+            cols: (B, H) int64 padded history item numbers.
+            vals: (B, H) f32 ratings (may be None for implicit data).
+            mask: (B, H) bool validity.
+
+        Returns:
+            (user embeddings (B, k), per-user bias offsets (B,) or None).
+        """
+        kern, args = self.device_fold_kernel()
+        args = tuple(torch.as_tensor(a, device=cols.device) if isinstance(a, np.ndarray) else a for a in args)
+        return kern(cols, vals, mask, *args)
+
+    def device_fold_kernel(self):
+        """``(kernel_fn, args)`` for the batch serving engine: ``kernel_fn``
+        takes a block's (cols, vals, mask) followed by ``args``, with any
+        NumPy array among them brought to the block's device first."""
+        raise NotImplementedError
 
     # ---- parameter container (reference: state/_container.py:14) ---------
     def get_parameters(self) -> dict[str, torch.Tensor | None]:
@@ -218,6 +313,122 @@ class ALSTrainerBase(ModelTrainer):
         self.i_factors = _f32(state["item_factors"], self.device)
 
 
+# ---------------------------------------------------------------------------
+# explicit
+class BiasedMFConfig(ALSConfig):
+    damping: float | dict[str, float] = 5.0
+
+
+class BiasedMFScorer(ALSBase):
+    """Explicit-feedback biased MF (reference: als/_explicit.py:32).
+    Buffers: ``user_embeddings`` (n_users, k) or None and ``item_embeddings``
+    (n_items, k); ``bias`` is the :class:`BiasModel` the ratings were
+    normalized with (NumPy arrays on the host)."""
+
+    config: BiasedMFConfig
+    bias: BiasModel
+
+    def __init__(self, config: BiasedMFConfig | dict | None = None, **kwargs):
+        super().__init__()
+        self.config = validated_config(BiasedMFConfig, config, kwargs)
+        self.users = None
+        self.items = None
+        self.register_buffer("user_embeddings", None)
+        self.register_buffer("item_embeddings", None)
+
+    @classmethod
+    def from_numpy(
+        cls,
+        params: dict[str, object],
+        config: BiasedMFConfig | dict,
+        users: Vocabulary,
+        items: Vocabulary,
+        device: str | torch.device | None = None,
+    ) -> "BiasedMFScorer":
+        """A scorer from trained parameters held as NumPy arrays, as the JAX
+        package's ``BiasedMFScorer`` and its ``BiasModel`` hold them:
+        ``user_embeddings`` (may be None), ``item_embeddings``,
+        ``global_bias``, ``item_biases`` and ``user_biases``; the bias
+        damping is the config's.  The tables go to ``device`` (the card
+        unless ``device="cpu"``) as float32."""
+        dev = resolve_device(device)
+        scorer = cls(config)
+        scorer.users = users
+        scorer.items = items
+        if params.get("item_embeddings") is None:
+            raise ValueError("from_numpy needs item_embeddings")
+        scorer.load_parameters(
+            {"user_embeddings": params.get("user_embeddings"), "item_embeddings": params["item_embeddings"]}, device=dev
+        )
+        scorer.bias = BiasModel(
+            scorer.config.damping,
+            float(params["global_bias"]),
+            items=items,
+            item_biases=np.array(params["item_biases"], dtype=np.float32),
+            users=users,
+            user_biases=np.array(params["user_biases"], dtype=np.float32),
+        )
+        return scorer
+
+    def create_trainer(self, data: Dataset, options: TrainingOptions) -> "BiasedMFTrainer":
+        return BiasedMFTrainer(self, data, options)
+
+    def new_user_embedding(self, user_num, items: ItemList):
+        ratings = items.field("rating")
+        if ratings is None:
+            return None, None
+        inums = items.numbers(vocabulary=self.items, missing="negative")
+        mask = (inums >= 0) & np.isfinite(ratings)
+        biases, u_bias = self.bias.compute_for_items(items, None, items)
+        resid = (ratings - biases)[mask]
+        rows = _rows(self.item_embeddings, inums[mask])
+        u_feat = als_ops.solve_row_explicit(np.arange(len(rows)), resid, rows, self.config.user_reg)
+        return u_feat, u_bias
+
+    def finalize_scores(self, user_num, items: ItemList, user_bias: float | None) -> ItemList:
+        scores = items.scores()
+        if user_bias is None:
+            if user_num is not None and self.bias.user_biases is not None:
+                user_bias = float(self.bias.user_biases[user_num])
+            else:
+                user_bias = 0.0
+        biases = self.bias.compute_for_items(items, bias=user_bias)
+        return ItemList(items, scores=scores + biases)
+
+    def device_fold_in(self, cols, vals, mask):
+        if vals is None:
+            raise ValueError("explicit ALS fold-in requires ratings")
+        return super().device_fold_in(cols, vals, mask)
+
+    def device_fold_kernel(self):
+        return _fold_explicit_kernel, (
+            self.item_embeddings,
+            self.bias.item_biases,
+            float(self.bias.global_bias),
+            entity_damping(self.bias.damping, "user"),
+            float(self.config.user_reg),
+        )
+
+
+class BiasedMFTrainer(ALSTrainerBase):
+    mode = "explicit"
+
+    def prepare_matrix(self, data: Dataset):
+        matrix = data.interaction_matrix()
+        csr = matrix.csr("rating")
+        if csr.values is None:
+            raise ValueError("explicit ALS requires rating values")
+        self.scorer.bias = BiasModel.learn(data, damping=self.config.damping, device=self.device)
+        return self.scorer.bias.transform_matrix(csr)
+
+    def initial_params(self, nrows: int, ncols: int) -> np.ndarray:
+        mat = self.rng.standard_normal((nrows, ncols)).astype(np.float32)
+        mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+        return mat
+
+
+# ---------------------------------------------------------------------------
+# implicit
 class ImplicitMFConfig(ALSConfig):
     weight: float = 40.0
     use_ratings: bool = False
@@ -232,15 +443,7 @@ class ImplicitMFScorer(ALSBase):
 
     def __init__(self, config: ImplicitMFConfig | dict | None = None, **kwargs):
         super().__init__()
-        if config is not None and kwargs:
-            raise TypeError("pass a config object or keyword args, not both")
-        if config is None:
-            config = ImplicitMFConfig.model_validate(kwargs)
-        elif isinstance(config, dict):
-            config = ImplicitMFConfig.model_validate(config)
-        elif not isinstance(config, ImplicitMFConfig):
-            raise TypeError(f"invalid config of type {type(config)}, expected ImplicitMFConfig")
-        self.config = config
+        self.config = validated_config(ImplicitMFConfig, config, kwargs)
         self.users = None
         self.items = None
         self.register_buffer("user_embeddings", None)
@@ -282,9 +485,30 @@ class ImplicitMFScorer(ALSBase):
         """Batch fold-in only needs rating values when confidences use them."""
         return self.config.use_ratings
 
+    def new_user_embedding(self, user_num, user_items: ItemList):
+        inums = user_items.numbers(vocabulary=self.items, missing="negative")
+        good = inums >= 0
+        if self.config.use_ratings:
+            ratings = user_items.field("rating")
+            if ratings is None:
+                raise ValueError("no ratings in user items")
+            conf = ratings[good] * self.config.weight
+        else:
+            conf = np.full(int(np.sum(good)), self.config.weight)
+        rows = _rows(self.item_embeddings, inums[good])
+        u_feat = als_ops.solve_row_implicit(
+            np.arange(len(rows)), conf.astype(np.float32), rows, self._OtOr.cpu().numpy()
+        )
+        return u_feat, None
+
+    def device_fold_in(self, cols, vals, mask):
+        if self.config.use_ratings and vals is None:
+            raise ValueError("use_ratings=True requires rating values")
+        if not self.config.use_ratings:
+            vals = None  # flat confidence ignores any supplied ratings
+        return super().device_fold_in(cols, vals, mask)
+
     def device_fold_kernel(self):
-        """``(kernel_fn, args)`` for the batch serving engine: ``kernel_fn``
-        takes a block's (cols, vals, mask) followed by ``args``."""
         return _fold_implicit_kernel, (self.item_embeddings, self._OtOr, float(self.config.weight))
 
 

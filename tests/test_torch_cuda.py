@@ -1,4 +1,5 @@
-"""On-card tests of the port's kernels and of its serving and training slices.
+"""On-card tests of the port's kernels and of its serving, training, retrieval
+and explicit slices.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor ``lkpy_tpu``, so it runs where only PyTorch is installed:
@@ -13,12 +14,14 @@ import torch
 
 from lkpy_tpu_torch.batch.device import device_recommend
 from lkpy_tpu_torch.data import from_interactions_df
-from lkpy_tpu_torch.models.als import ImplicitMFScorer
+from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.als import implicit_otor
+from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, mips_topk, mips_topk_plain
 from lkpy_tpu_torch.ops.sparse import bucket_rows
 from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
 from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
+from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, retrieval_topk
 from lkpy_tpu_torch.training import TrainingOptions
 
 pytestmark = pytest.mark.cuda
@@ -158,3 +161,119 @@ def test_train_defaults_to_the_card(cuda):
     # the card's bmm sums in another order than the CPU's: compare whole tables
     diff = (scorer.item_embeddings.cpu() - cpu.item_embeddings).norm() / cpu.item_embeddings.norm()
     assert float(diff) <= 1e-3
+
+
+def _assert_topk_close(got, want, scores=None):
+    """Kernel against plain: values rtol/atol 1e-5 (the kernel sums over D in
+    order, the product of the plain version does not), the same empty slots,
+    indices equal wherever the neighbouring ranks are more than 1e-4 away."""
+    (gv, gi), (wv, wi) = got, want
+    assert gv.dtype == torch.float32 and gi.dtype == torch.int32
+    finite = torch.isfinite(wv)
+    assert torch.equal(torch.isfinite(gv), finite)
+    torch.testing.assert_close(gv[finite], wv[finite], rtol=1e-5, atol=1e-5)
+    assert (gi[~finite] == INT32_MAX).all() and (gv[~finite] == -torch.inf).all()
+    w = torch.where(finite, wv, torch.zeros_like(wv))
+    gap = (w[:, :-1] - w[:, 1:]).abs()
+    clear = torch.ones_like(finite)
+    clear[:, :-1] &= gap > 1e-4
+    clear[:, 1:] &= gap > 1e-4
+    clear[:, -1] = False  # the cut-off may fall inside a near tie
+    clear &= finite
+    assert torch.equal(gi[clear], wi[clear])
+
+
+def _topk_inputs(cuda, seed, B, N, D):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, D), dtype=np.float32) * 0.35).to(cuda)
+    items = torch.from_numpy(rng.standard_normal((N, D), dtype=np.float32) * 0.35).to(cuda)
+    return rng, q, items
+
+
+@pytest.mark.parametrize(
+    "B,N,D,k", [(256, 500_000, 64, 10), (256, 500_000, 64, 64), (1024, 27_000, 64, 10), (37, 1001, 48, 7), (5, 300, 50, 64)]
+)
+@pytest.mark.parametrize("variant", ["plain", "bias", "exclude"])
+def test_mips_topk_kernel_matches_plain(cuda, B, N, D, k, variant):
+    rng, q, items = _topk_inputs(cuda, B + N + k, B, N, D)
+    bias = torch.from_numpy(rng.standard_normal(N, dtype=np.float32) * 0.3).to(cuda) if variant == "bias" else None
+    excl = (torch.rand((B, N), device=cuda) < 0.01).to(torch.int8) if variant == "exclude" else None
+    before = mips_topk.launches
+    got = mips_topk(q, items, k, i_bias=bias, exclude=excl)
+    torch.cuda.synchronize()
+    assert mips_topk.launches == before + 1
+    _assert_topk_close(got, mips_topk_plain(q, items, k, i_bias=bias, exclude=excl))
+    if excl is not None:
+        assert not excl.gather(1, got[1].long()).any()
+
+
+def test_mips_topk_ties_and_empty_slots(cuda):
+    rng, q, items = _topk_inputs(cuda, 9, 40, 3000, 32)
+    items[1500:] = items[:1500]  # item 1500 + j scores bit-equal to item j
+    v, i = mips_topk(q, items, 20)
+    pv, pi = mips_topk_plain(q, items, 20)
+    assert torch.equal(i, pi)
+    assert torch.equal(i[:, 1::2], i[:, 0::2] + 1500) and torch.equal(v[:, 1::2], v[:, 0::2])
+    # a row wholly excluded, a row with 3 scoreable items, k past the catalog
+    excl = torch.zeros((40, 3000), dtype=torch.bool, device=cuda)
+    excl[0] = True
+    excl[1, 3:] = True
+    v, i = mips_topk(q, items, 8, exclude=excl)
+    assert (v[0] == -torch.inf).all() and (i[0] == INT32_MAX).all()
+    assert torch.isfinite(v[1, :3]).all() and (v[1, 3:] == -torch.inf).all() and (i[1, 3:] == INT32_MAX).all()
+    assert sorted(i[1, :3].tolist()) == [0, 1, 2]
+    _assert_topk_close((v, i), mips_topk_plain(q, items, 8, exclude=excl))
+    _assert_topk_close(mips_topk(q, items[:5], 9), mips_topk_plain(q, items[:5], 9))
+
+
+def test_mips_topk_refuses_what_the_kernel_does_not_take(cuda):
+    _, q, items = _topk_inputs(cuda, 1, 8, 100, 16)
+    with pytest.raises(ValueError):
+        mips_topk(q, items.T.contiguous().T, 5)
+    with pytest.raises(ValueError):
+        mips_topk(q, items.cpu(), 5)
+    with pytest.raises(ValueError):
+        mips_topk(q, items, 65)
+
+
+def test_retrieval_topk_dispatch(cuda):
+    rng, q, big = _topk_inputs(cuda, 2, 64, FUSED_RETRIEVAL_MIN_ITEMS, 16)
+    bias = torch.from_numpy(rng.standard_normal(len(big), dtype=np.float32) * 0.3).to(cuda)
+    small = big[: FUSED_RETRIEVAL_MIN_ITEMS - 1]
+    for items, k, exact, launches in [(big, 10, True, 1), (big, 64, False, 1), (big, 65, True, 0), (small, 10, True, 0)]:
+        b = bias[: len(items)]
+        before = mips_topk.launches
+        v, i = retrieval_topk(q, items, k, i_bias=b, exact=exact, chunk=16)
+        assert mips_topk.launches == before + launches
+        assert i.dtype == torch.int32 and v.shape == (64, k)
+        pv, pi = torch.topk(q @ items.T + b, k)
+        torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+        assert (i != pi).float().mean() < 0.01  # near ties only
+
+
+def _ratings_dataset(rng, n_users=300, n_items=120):
+    lens = np.minimum(rng.zipf(1.5, size=n_users) + 3, n_items // 2)
+    u = np.repeat(np.arange(n_users), lens)
+    i = np.concatenate([rng.choice(n_items, size=n, replace=False) for n in lens])
+    r = np.clip(3.5 + rng.normal(0, 0.5, n_items)[i] + rng.normal(0, 0.5, len(u)), 0.5, 5.0).astype(np.float32)
+    return from_interactions_df(pd.DataFrame({"user_id": u, "item_id": i, "rating": r}))
+
+
+def test_explicit_family_on_card_matches_cpu(cuda):
+    ds = _ratings_dataset(np.random.default_rng(13))
+    out = {}
+    for dev in ("cpu", cuda):
+        scorer = BiasedMFScorer(features=50, epochs=2)
+        b1, b2 = spd_solve_chunked.launches, spd_solve.launches
+        scorer.train(ds, TrainingOptions(rng=3, device=dev))
+        assert (spd_solve_chunked.launches > b1) == (dev == cuda)  # explicit training runs the training solve
+        recs = device_recommend(scorer, ds.users.ids, 10, ds.interaction_matrix(), chunk=64, device=dev)
+        assert (spd_solve.launches > b2) == (dev == cuda)  # explicit fold-in runs the fold-in solve
+        out[str(dev)] = (scorer, recs)
+    cpu, gpu = out["cpu"][0], out["cuda"][0]
+    assert gpu.item_embeddings.device.type == "cuda"
+    assert float((gpu.item_embeddings.cpu() - cpu.item_embeddings).norm() / cpu.item_embeddings.norm()) <= 1e-3
+    np.testing.assert_allclose(gpu.bias.item_biases, cpu.bias.item_biases, rtol=1e-4, atol=1e-5)
+    for (key, il_cpu), (key2, il_gpu) in zip(out["cpu"][1].items(), out["cuda"][1].items()):
+        assert key == key2 and len(il_cpu) == len(il_gpu) == 10
+        np.testing.assert_allclose(il_gpu.scores(), il_cpu.scores(), rtol=2e-3, atol=2e-3)

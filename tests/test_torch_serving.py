@@ -165,6 +165,23 @@ from lkpy_tpu_torch.training import TrainingOptions
 trained = ImplicitMFScorer(features=8, epochs=2)
 trained.train(ds, TrainingOptions(rng=1, device="cpu"))
 assert device_recommend(trained, ds.users.ids, 5, ds.interaction_matrix(), device="cpu").total_items() > 0
+# the retrieval slice and the explicit family
+import lkpy_tpu_torch.ops as ops, lkpy_tpu_torch.ops.mips_topk, lkpy_tpu_torch.ops.segment, lkpy_tpu_torch.data.query
+from lkpy_tpu_torch.ops.topk import retrieval_topk
+from lkpy_tpu_torch.models.als import BiasedMFScorer
+from lkpy_tpu_torch.models.bias import BiasScorer
+v, i = retrieval_topk(trained.user_embeddings, trained.item_embeddings, 5)
+assert v.shape == (ds.user_count, 5) and ops.top_n_indices(v, 2).shape == (ds.user_count, 2)
+rated = from_interactions_df(pd.DataFrame({"user_id": rng.integers(0, 40, 600), "item_id": rng.integers(0, 90, 600),
+                                           "rating": rng.integers(1, 6, 600).astype(np.float32)}))
+mf = BiasedMFScorer(features=6, epochs=2)
+mf.train(rated, TrainingOptions(rng=1, device="cpu"))
+assert device_recommend(mf, rated.users.ids, 5, rated.interaction_matrix(), device="cpu").total_items() > 0
+from lkpy_tpu_torch.data import ItemList
+assert np.isfinite(mf(rated.users.ids[0], ItemList(item_ids=rated.items.ids[:4])).scores()).all()
+bs = BiasScorer(damping=5.0)
+bs.train(rated, TrainingOptions(device="cpu"))
+assert np.isfinite(bs(rated.users.ids[0], ItemList(item_ids=rated.items.ids[:4])).scores()).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu"))
 print(",".join(bad))
 """
