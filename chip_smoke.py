@@ -8,7 +8,14 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and a library
    yardstick: the fold-in solve (``spd_solve``), the training solve
-   (``spd_solve_chunked``) and the fused MIPS top-k (``mips_topk``).
+   (``spd_solve_chunked``: the register route beside the shared-memory
+   route at every shape, widths on both sides of each route boundary,
+   singular systems among regular ones) and the fused MIPS top-k
+   (``mips_topk``: the number of item ranges per case, the merge kernel
+   alone, the three-pass TF32 product beside the f32 FMA product, ties
+   across a range boundary, and kernel against ``torch.topk(q @ I.T)`` on
+   a grid of catalog and batch sizes, which the dispatch of
+   ``retrieval_topk`` is held against).
 3. Makes bench.py's synthetic ML-20M-scale interactions (138k users x 27k
    items, seed 42) once, and drives the paths of the port at full width,
    each with the launch counters set to 0 just before it and read just
@@ -32,6 +39,13 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result.  Without a CUDA device it exits non-zero at once.
+
+    python3 chip_smoke.py --sweeps
+
+times, and checks nothing: the fused top-k kernel's two products over forced
+numbers of item ranges and over a grid of batch, catalog and list sizes (what
+``ops/mips_topk.py``'s ``RANGE_START_ITEMS`` and ``TENSOR_CORE_MIN_SCORES``
+were set from).
 """
 
 from __future__ import annotations
@@ -79,11 +93,15 @@ SPD_SHAPES = [(1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1000, 
 SPD_MAIN_SHAPE = (SERVE_CHUNK, FEATURES)
 SPD_EXPLICIT_SHAPE = (SERVE_CHUNK, EXPLICIT_FEATURES)
 #: (N, k) shapes of the training solve's kernel phase: the largest chunk of
-#: the training split at the implicit and the explicit width, then the same
-#: widths as above
+#: the training split at the implicit and the explicit width, then widths on
+#: both sides of every boundary of the register route's templates (32, 64,
+#: 96, 128) and of the route boundary itself (128 | 129)
 CHUNKED_SHAPES = [
-    (LARGEST_CHUNK_ROWS, 64), (16384, 64), (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES), (1000, 50), (7, 8), (333, 128), (64, 256)
+    (LARGEST_CHUNK_ROWS, 64), (16384, 64), (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES), (1000, 50), (7, 8), (1000, 32),
+    (1000, 33), (1000, 65), (500, 96), (500, 97), (333, 128), (333, 129), (64, 256),
 ]  # fmt: skip
+#: (N, k, every) batches with a zero system at every ``every``-th place
+SINGULAR_SHAPES = [(1000, 64, 7), (1000, EXPLICIT_FEATURES, 3), (300, 96, 5), (200, 129, 4)]
 CHUNKED_MAIN_SHAPE = (LARGEST_CHUNK_ROWS, FEATURES)
 CHUNKED_EXPLICIT_SHAPE = (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES)
 
@@ -106,6 +124,12 @@ TOPK_PLAIN_TIMED_ROWS = 512
 TOPK_F64_ROWS = 256
 #: catalog size of the tie-rule and empty-slot cases (78 item tiles)
 TOPK_EDGE_ITEMS = 20_000
+#: catalog and batch sizes on which kernel and ``torch.topk(q @ I.T)`` are
+#: timed at k = 10: what the dispatch of ``retrieval_topk`` is set from
+GRID_ITEMS = [27_000, 50_000, 100_000, 200_000, 500_000]
+GRID_QUERIES = [64, 1024, 4096]
+#: H100 SXM dense TF32 tensor-core rate; the three-pass product does 3x the operations
+PEAK_TF32_FLOP_PER_S = 495e12
 
 #: hold-out RMSE bounds of the explicit model on bench.py's synthetic
 #: ratings: the JAX package's recorded run scored 0.5782 against a bias-only
@@ -178,14 +202,22 @@ def spd_inputs(rng: np.random.Generator, B: int, k: int, dev):
     return A.contiguous(), y
 
 
-def solve_kernel_phase(name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev) -> dict:
+def solve_kernel_phase(
+    name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev, previous=None
+) -> dict:
     """Hold one SPD-solve kernel against its plain version and a float64
     solve at each shape, time kernel, plain version and
     ``cholesky`` + ``cholesky_solve``, and check that a zero system gives
-    non-finite output in its own row only.  Returns the main shape's row of
-    the kernels line, with the explicit path's shape under ``explicit``."""
+    non-finite output in its own row only.  ``previous`` is the kernel's
+    earlier design (the general route), held against the plain version and
+    timed at the same shapes in the same run.  Returns the main shape's row
+    of the kernels line, with the explicit path's shape under ``explicit``
+    and every shape's times under ``shapes``."""
+    from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route
+
     rng = np.random.default_rng(seed)
     row = explicit = None
+    by_shape = []
     for B, k in shapes:
         A, y = spd_inputs(rng, B, k, dev)
         x = kernel(A, y)
@@ -194,6 +226,14 @@ def solve_kernel_phase(name, kernel, plain, shapes, main_shape, explicit_shape, 
         torch.cuda.synchronize()
         abs_err = float((x - p).abs().max())
         rel_err = abs_err / float(p.abs().max())
+        previous_ms = None
+        if previous is not None:
+            xp = previous(A, y)
+            torch.cuda.synchronize()
+            prev_err = float((xp - p).abs().max() / p.abs().max())
+            if not prev_err <= plain_tol:
+                raise AssertionError(f"{name} ({B},{k}): the general route vs plain max relative error {prev_err}")
+            previous_ms = cuda_ms(lambda: previous(A, y), reps=20)
         x64 = torch.linalg.solve(A.double(), y.double())
         err64 = float((x.double() - x64).abs().max() / x64.abs().max())
         resid = float((A.double() @ x.double()[:, :, None])[:, :, 0].sub(y.double()).abs().max() / y.abs().max())
@@ -212,6 +252,16 @@ def solve_kernel_phase(name, kernel, plain, shapes, main_shape, explicit_shape, 
             f"vs float64 {err64:.3e}; residual {resid:.3e}"
         )
         measured = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+        if previous is not None:
+            route = solve_route(k)
+            log(
+                f"{name} B={B} k={k}: route {route}; the general (shared-memory) route, the design before, "
+                f"{previous_ms:.4f} ms in the same run ({previous_ms / ms:.2f}x the kernel's time)"
+            )
+            measured.update(solve_route=route, previous_ms=previous_ms)
+            by_shape.append(dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, rel_err_vs_plain=rel_err))
+            if (B, k) in (main_shape, explicit_shape) and not ms < previous_ms:
+                raise AssertionError(f"{name} ({B},{k}): the register route ({ms} ms) must beat the design before ({previous_ms} ms)")
         if (B, k) == main_shape:
             row = measured
         if (B, k) == explicit_shape:
@@ -225,7 +275,33 @@ def solve_kernel_phase(name, kernel, plain, shapes, main_shape, explicit_shape, 
     if torch.isfinite(x[[1, 3]]).any() or not torch.isfinite(x[[0, 2, 4]]).all():
         raise AssertionError(f"{name}: a zero system must give non-finite output, the others finite")
     log(f"{name} zero systems: non-finite output in their own rows only, as required")
+    if previous is not None:
+        return dict(row, explicit=explicit, shapes=by_shape)
     return dict(row, explicit=explicit)
+
+
+def singular_neighbours_phase(dev) -> None:
+    """Zero systems among regular ones (explicit ALS's padding rows): on
+    both routes of ``spd_solve_chunked`` the zero systems' rows are
+    non-finite and every other row is, to the bit, what the same kernel
+    gives for the batch without them."""
+    from lkpy_tpu_torch.ops.spd_solve_chunked import _launch, solve_route
+
+    rng = np.random.default_rng(12)
+    for N, k, every in SINGULAR_SHAPES:
+        A, y = spd_inputs(rng, N, k, dev)
+        zero = torch.arange(N, device=dev) % every == 1
+        A0 = A.clone()
+        A0[zero] = 0.0
+        for route in dict.fromkeys([solve_route(k), "shared"]):
+            clean = _launch(A, y, route)
+            got = _launch(A0, y, route)
+            torch.cuda.synchronize()
+            if torch.isfinite(got[zero]).any():
+                raise AssertionError(f"spd_solve_chunked ({N},{k}) {route}: a zero system gave finite output")
+            if not torch.equal(got[~zero], clean[~zero]):
+                raise AssertionError(f"spd_solve_chunked ({N},{k}) {route}: a zero system disturbed its neighbours")
+        log(f"spd_solve_chunked ({N},{k}): {int(zero.sum())} zero systems, their neighbours unchanged to the bit on every route")
 
 
 def synth_interactions(rng: np.random.Generator):
@@ -545,13 +621,15 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     return launches, served, split
 
 
-def topk_bound(B: int, N: int, D: int, k: int, biased: bool, masked: bool) -> tuple[float, str]:
+def topk_bound(B: int, N: int, D: int, k: int, biased: bool, masked: bool, tensor_cores: bool = False) -> tuple[float, str]:
     """Least time (ms) for a fused MIPS top-k: queries, items, bias and mask
     read once, the (B, k) values and indices written once; 2·B·N·D f32
-    operations outside the tensor cores (the selection is not counted)."""
+    operations outside the tensor cores or, with ``tensor_cores``, the three
+    passes' 6·B·N·D operations at the TF32 tensor-core rate (the selection is
+    not counted)."""
     nbytes = 4 * (B * D + N * D) + 8 * B * k + (4 * N if biased else 0) + (B * N if masked else 0)
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2.0 * B * N * D / PEAK_F32_FLOP_PER_S
+    t_ops = 6.0 * B * N * D / PEAK_TF32_FLOP_PER_S if tensor_cores else 2.0 * B * N * D / PEAK_F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -627,16 +705,62 @@ def check_topk(label, q, items, k, bias, excl, got) -> float:
     return max_abs
 
 
+def f64_rel_err(q, items, bias, got) -> float:
+    """Largest relative error of the returned values against float64 scores
+    of the returned items, on the first ``TOPK_F64_ROWS`` rows."""
+    gv, gi = got
+    rows = min(TOPK_F64_ROWS, len(q))
+    safe = gi[:rows].long().clamp(max=items.shape[0] - 1)
+    s64 = (q[:rows, None, :].double() * items[safe].double()).sum(-1)
+    if bias is not None:
+        s64 += bias[safe].double()
+    fin = torch.isfinite(gv[:rows])
+    return float(((gv[:rows].double() - s64).abs() / s64.abs())[fin].max())
+
+
+def merge_kernel_check(B: int, S: int, k: int, dev) -> float:
+    """Hold the merge kernel alone against its plain version on random
+    sorted partial lists with many equal values and some empty slots, and
+    time it.  Returns its time in ms."""
+    from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _merge_lists, _merge_lists_plain
+
+    g = torch.Generator(device=dev).manual_seed(B + S + k)
+    # values from a small set, so that equal values meet across lists; a range's indices lie in its own block
+    part_v = torch.randint(0, 4 * k, (B, S, k), device=dev, generator=g).float().sort(dim=2, descending=True).values
+    part_i = torch.rand((B, S, 1000), device=dev, generator=g).argsort(dim=2)[:, :, :k].sort(dim=2).values.int()
+    part_i += 1000 * torch.arange(S, device=dev, dtype=torch.int32)[None, :, None]
+    empty = torch.arange(k, device=dev)[None, None, :] >= torch.randint(0, k + 1, (B, S, 1), device=dev, generator=g)
+    part_v[empty] = -torch.inf
+    part_i[empty] = INT32_MAX
+    part_v, part_i = part_v.contiguous(), part_i.contiguous()
+    got = _merge_lists(part_v, part_i)
+    torch.cuda.synchronize()
+    want = _merge_lists_plain(part_v, part_i)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"mips_topk merge kernel ({B},{S},{k}) disagrees with its plain version")
+    return cuda_ms(lambda: _merge_lists(part_v, part_i), reps=20)
+
+
 def topk_kernel_phase(dev) -> dict:
     """Hold the fused MIPS top-k kernel against its plain version and float64
-    scores at each case, and time kernel, plain version (on fewer rows where
-    the batch is large) and ``torch.topk`` of the whole score matrix.
+    scores at each case, on the path's product (f32 FMA) and on the
+    three-pass TF32 product, and time kernel, plain version (on fewer rows
+    where the batch is large) and ``torch.topk`` of the whole score matrix;
+    then the merge kernel alone, the tie and empty-slot cases across item
+    ranges, and the grid the dispatch of ``retrieval_topk`` is set from.
     Returns the main case's row of the kernels line."""
-    from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, mips_topk, mips_topk_plain
+    from lkpy_tpu_torch.ops.mips_topk import (
+        INT32_MAX, PRODUCT_FMA, PRODUCT_TF32X3, TENSOR_CORE_MAX_D, _launch, choose_product, mips_topk, mips_topk_plain,
+        range_items,
+    )  # fmt: skip
+    from lkpy_tpu_torch.ops.topk import fused_route
+
+    names = {PRODUCT_FMA: "f32 FMA", PRODUCT_TF32X3: "three-pass TF32"}
 
     rng = np.random.default_rng(9)
     made: dict = {}
     row = None
+    cases: list = []
     for B, N, D, k, variant in TOPK_CASES:
         if D not in made:  # one table per depth, cut to each case's size
             nq = max(c[0] for c in TOPK_CASES if c[2] == D)
@@ -656,8 +780,23 @@ def topk_kernel_phase(dev) -> dict:
         label = f"mips_topk B={B} N={N} D={D} k={k} {variant}"
         got = mips_topk(q, items, k, i_bias=bias, exclude=excl)
         torch.cuda.synchronize()
+        splits, product = mips_topk.last_splits, mips_topk.last_product
+        if product != choose_product(B, N, D, k):
+            raise AssertionError(f"{label}: the launch took product {product}, not the one its shape gives")
         max_abs = check_topk(label, q, items, k, bias, excl, got)
         ms = cuda_ms(lambda: mips_topk(q, items, k, i_bias=bias, exclude=excl), reps=20)
+        err = {product: f64_rel_err(q, items, bias, got)}
+        by_product = {product: (ms, splits)}
+        # the other product, which this shape does not take: same checks, its time and error beside
+        other = PRODUCT_FMA if product == PRODUCT_TF32X3 else PRODUCT_TF32X3
+        if D <= TENSOR_CORE_MAX_D:
+            got2 = _launch(q, items, k, bias, excl, product=other)
+            torch.cuda.synchronize()
+            check_topk(f"{label} [{names[other]}]", q, items, k, bias, excl, got2)
+            by_product[other] = (cuda_ms(lambda: _launch(q, items, k, bias, excl, product=other), reps=20), mips_topk.last_splits)
+            err[other] = f64_rel_err(q, items, bias, got2)
+            del got2
+        merge_ms = merge_kernel_check(B, splits, k, dev) if splits > 1 else 0.0
         prow = min(B, TOPK_PLAIN_TIMED_ROWS)
         plain_ms = cuda_ms(
             lambda: mips_topk_plain(q[:prow], items, k, i_bias=bias, exclude=None if excl is None else excl[:prow]),
@@ -674,48 +813,150 @@ def topk_kernel_phase(dev) -> dict:
             return torch.topk(s, k, dim=1)
 
         lib_ms = cuda_ms(library, reps=3, warm=1)
-        bound_ms, bound_by = topk_bound(B, N, D, k, bias is not None, excl is not None)
-        tf32_ms = 2.0 * B * N * D / 495e12 * 1e3
-        log(
-            f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {prow} rows, torch.topk(q @ I.T) {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}, kernel {ms / bound_ms:.2f}x; the TF32 tensor-core rate would give "
-            f"{tf32_ms:.4f} ms)"
+        # the bound of the product this launch took, and both products' beside
+        bound_ms, bound_by = topk_bound(B, N, D, k, bias is not None, excl is not None, product == PRODUCT_TF32X3)
+        bound1_ms = topk_bound(B, N, D, k, bias is not None, excl is not None)[0]
+        bound3_ms = topk_bound(B, N, D, k, bias is not None, excl is not None, True)[0]
+        products = "; ".join(
+            f"{names[p]} {t:.4f} ms with S={sp}, largest relative error vs float64 {err[p]:.3e}"
+            for p, (t, sp) in sorted(by_product.items())
         )
+        log(
+            f"{label}: kernel {ms:.4f} ms on the {names[product]} product with S={splits} item ranges (merge kernel alone "
+            f"{merge_ms:.4f} ms), plain {plain_ms:.4f} ms on {prow} rows, torch.topk(q @ I.T) {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, kernel {ms / bound_ms:.2f}x; f32 FMA product {bound1_ms:.4f} ms, three passes "
+            f"at the TF32 tensor-core rate {bound3_ms:.4f} ms); by product: {products}"
+        )
+        fma_ms, tf32x3_ms = (by_product.get(p, (None, None))[0] for p in (PRODUCT_FMA, PRODUCT_TF32X3))
         if (B, N, D, k, variant) == TOPK_MAIN_CASE:
+            if not (product == PRODUCT_TF32X3 and tf32x3_ms < fma_ms):
+                raise AssertionError(f"{label}: the tensor-core product is on this path because it is the faster: {by_product}")
             row = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, plain_rows=prow, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms,
+                library_ms=lib_ms, product=names[product], splits=splits, merge_ms=merge_ms, fma_ms=fma_ms,
+                fma_bound_ms=bound1_ms, fma_max_rel_err_f64=err[PRODUCT_FMA], tf32x3_ms=tf32x3_ms, tf32x3_bound_ms=bound3_ms,
+                tf32x3_max_rel_err_f64=err[PRODUCT_TF32X3], cases=[],
             )  # fmt: skip
+        cases.append(dict(case=[B, N, D, k, variant], product=names[product], ms=ms, splits=splits, merge_ms=merge_ms,
+                          library_ms=lib_ms, fma_ms=fma_ms, tf32x3_ms=tf32x3_ms))  # fmt: skip
         del excl, got
 
-    # duplicated item rows: equal scores come smaller index first, also across tiles
+    row["cases"] = cases
+
+    # duplicated item rows: equal scores come smaller index first, also across
+    # tiles and across item ranges, for every S and on both products
     half = TOPK_EDGE_ITEMS // 2
     q, items = made[FEATURES][0][:64], made[FEATURES][1][: 2 * half].clone()
     items[half:] = items[:half]
-    gv, gi = mips_topk(q, items, 16)
-    check_topk("mips_topk duplicated item rows", q, items, 16, None, None, (gv, gi))
-    if not (torch.equal(gi, mips_topk_plain(q, items, 16)[1]) and torch.equal(gi[:, 1::2], gi[:, 0::2] + half)):
-        raise AssertionError("mips_topk: a duplicated row must follow its original, as in the plain version")
+    # and equal scores on the two sides of a range boundary, next to each other (S = 4: ranges of 5,120 items)
+    edge = range_items(2 * half, 4)
+    items[edge] = items[edge - 1]
+    items[edge - 1] *= 4.0  # so that the pair is among the best of many rows
+    items[edge] *= 4.0
+    want_v, want_i = mips_topk_plain(q, items, 16)
+    # the three-pass product rounds otherwise than the plain version, so it is held to the plain version's
+    # indices where the plain values are equal (and, by check_topk, wherever the gap is clear)
+    tied = torch.zeros_like(want_i, dtype=torch.bool)
+    tied[:, :-1] |= want_v[:, :-1] == want_v[:, 1:]
+    tied[:, 1:] |= want_v[:, :-1] == want_v[:, 1:]
+    pair_rows = int(((want_i == edge - 1).any(1) & (want_i == edge).any(1)).sum())
+    if pair_rows == 0:
+        raise AssertionError("the tie case must have the boundary pair in some row's list")
+    for product in (PRODUCT_FMA, PRODUCT_TF32X3):
+        for forced in (None, 1, 2, 4, 7):
+            gv, gi = _launch(q, items, 16, splits=forced, product=product)
+            label = f"mips_topk duplicated item rows, {names[product]}, S={mips_topk.last_splits}"
+            check_topk(label, q, items, 16, None, None, (gv, gi))
+            if not (torch.equal(gi, want_i) if product == PRODUCT_FMA else torch.equal(gi[tied], want_i[tied])):
+                raise AssertionError(f"{label}: equal scores must be listed as in the plain version")
+            if forced is None and mips_topk.last_splits < 2:
+                raise AssertionError("the tie case must run with several item ranges")
+    log(f"mips_topk ties: duplicates {half} items apart and a pair astride a range boundary (in {pair_rows} rows' lists) "
+        "come smaller index first for S in {auto, 1, 2, 4, 7} on both products")  # fmt: skip
     # a row wholly excluded, a row with three scoreable items, k past the catalog
     excl = torch.zeros((64, 2 * half), dtype=torch.int8, device=dev)
     excl[0] = 1
     excl[1, 3:] = 1
-    gv, gi = mips_topk(q, items, 8, exclude=excl)
-    check_topk("mips_topk excluded rows", q, items, 8, None, excl, (gv, gi))
-    if not ((gi[0] == INT32_MAX).all() and (gi[1, 3:] == INT32_MAX).all() and sorted(gi[1, :3].tolist()) == [0, 1, 2]):
-        raise AssertionError("mips_topk: empty slots of excluded rows are wrong")
-    gv, gi = mips_topk(q, items[:5], 9)
-    check_topk("mips_topk k past the catalog", q, items[:5], 9, None, None, (gv, gi))
-    if not (torch.isfinite(gv[:, :5]).all() and (gi[:, 5:] == INT32_MAX).all()):
-        raise AssertionError("mips_topk: k past the catalog must leave empty slots")
-    log("mips_topk tie rule, excluded rows and k past the catalog: as required")
+    for product in (PRODUCT_FMA, PRODUCT_TF32X3):
+        gv, gi = _launch(q, items, 8, None, excl, product=product)
+        if mips_topk.last_splits < 2:
+            raise AssertionError("the excluded-rows case must run with several item ranges")
+        check_topk(f"mips_topk excluded rows, {names[product]}, S={mips_topk.last_splits}", q, items, 8, None, excl, (gv, gi))
+        if not ((gi[0] == INT32_MAX).all() and (gi[1, 3:] == INT32_MAX).all() and sorted(gi[1, :3].tolist()) == [0, 1, 2]):
+            raise AssertionError("mips_topk: empty slots of excluded rows are wrong")
+        gv, gi = _launch(q, items[:5], 9, product=product)
+        check_topk(f"mips_topk k past the catalog, {names[product]}", q, items[:5], 9, None, None, (gv, gi))
+        if not (torch.isfinite(gv[:, :5]).all() and (gi[:, 5:] == INT32_MAX).all()):
+            raise AssertionError("mips_topk: k past the catalog must leave empty slots")
+    log("mips_topk tie rule, excluded rows (fewer than k scoreable items under S > 1) and k past the catalog: as required")
+
+    # kernel against torch.topk(q @ I.T) at k = 10 over catalog and batch sizes: the dispatch's measure
+    grid = []
+    agree = 0
+    for N in GRID_ITEMS:
+        for B in GRID_QUERIES:
+            q, items = made[FEATURES][0][:B], made[FEATURES][1][:N]
+            ms = cuda_ms(lambda: mips_topk(q, items, 10), reps=20)
+            lib_ms = cuda_ms(lambda: torch.topk(q @ items.T, 10, dim=1), reps=5, warm=1)
+            fused = fused_route("cuda", B, N, 10)
+            taken, other = (ms, lib_ms) if fused else (lib_ms, ms)
+            ok = taken <= 1.1 * other
+            agree += ok
+            grid.append(dict(B=B, N=N, ms=ms, library_ms=lib_ms, splits=mips_topk.last_splits,
+                             product=names[mips_topk.last_product], fused=fused))  # fmt: skip
+            log(
+                f"grid N={N} B={B} k=10: kernel {ms:.4f} ms ({names[mips_topk.last_product]}, S={mips_topk.last_splits}), "
+                f"torch.topk(q @ I.T) {lib_ms:.4f} ms; "
+                f"retrieval_topk takes the {'kernel' if fused else 'library route'}"
+                + ("" if ok else ": SLOWER than the other route by more than 10 %")
+            )
+    log(f"dispatch of retrieval_topk: the route taken is within 10 % of the faster one on {agree} of {len(grid)} grid points")
+    row["grid"] = grid
+    small = next(g for g in grid if (g["B"], g["N"]) == (64, RETR_ITEMS))
+    if not small["ms"] <= small["library_ms"]:
+        raise AssertionError(f"mips_topk at (64, {RETR_ITEMS}) must not be slower than torch.topk(q @ I.T): {small}")
     return row
+
+
+def sweeps(dev) -> None:
+    """Time ``mips_topk``'s two products at forced numbers of item ranges,
+    then both products with the number the wrapper chooses over batch,
+    catalog and list sizes."""
+    from lkpy_tpu_torch.ops.mips_topk import PRODUCT_FMA, PRODUCT_TF32X3, _launch, choose_product, mips_topk
+
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((16384, FEATURES), dtype=np.float32) * 0.35).to(dev)
+    items = torch.from_numpy(rng.standard_normal((RETR_ITEMS, FEATURES), dtype=np.float32) * 0.35).to(dev)
+    names = {PRODUCT_FMA: "fma", PRODUCT_TF32X3: "tf32x3"}
+    log("sweep 1: ms by forced number of item ranges S (auto = the wrapper's choice)")
+    for B, N, k in [(4096, 500_000, 10), (4096, 500_000, 64), (1024, 500_000, 10), (64, 500_000, 10), (1024, 27_000, 10), (64, 27_000, 10)]:
+        forced = [None, 1, 2, 4, 8, 16, 33] if B == 4096 else [None, 4, 16, 33, 66, 132, 264] if N > 100_000 else [None, 1, 4, 8, 26]
+        for product in (PRODUCT_FMA, PRODUCT_TF32X3):
+            cells = []
+            for S in forced:
+                ms = cuda_ms(lambda: _launch(q[:B], items[:N], k, splits=S, product=product), reps=10)
+                cells.append(f"{'auto' if S is None else S}->{mips_topk.last_splits}: {ms:.4f}")
+            log(f"  B={B} N={N} k={k} {names[product]}: " + ", ".join(cells))
+    log("sweep 2: ms of each product with the wrapper's S; * marks the product the wrapper takes")
+    for k in (10, 64):
+        for N in GRID_ITEMS:
+            cells = []
+            for B in (256, 1024, 2048, 4096, 16384):
+                t = {}
+                for product in (PRODUCT_FMA, PRODUCT_TF32X3):
+                    t[product] = cuda_ms(lambda: _launch(q[:B], items[:N], k, product=product), reps=10)
+                taken = choose_product(B, N, FEATURES, k)
+                cells.append(
+                    f"B={B} fma {t[PRODUCT_FMA]:.4f}{'*' if taken == PRODUCT_FMA else ''} "
+                    f"tf32x3 {t[PRODUCT_TF32X3]:.4f}{'*' if taken == PRODUCT_TF32X3 else ''}"
+                )
+            log(f"  k={k} N={N}: " + "; ".join(cells))
 
 
 def retrieval_phase(dev, scorer, rng: np.random.Generator) -> dict:
     """The retrieval path: ``retrieval_topk`` of trained user rows against
     bench.py's large catalog (the trained item table tiled with jitter)."""
-    from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, retrieval_topk
+    from lkpy_tpu_torch.ops.topk import fused_route, retrieval_topk
 
     i_np = scorer.item_embeddings.cpu().numpy()
     reps = -(-RETR_ITEMS // len(i_np))
@@ -726,7 +967,7 @@ def retrieval_phase(dev, scorer, rng: np.random.Generator) -> dict:
     # an item bias of a tenth of the scores' size
     scale = 0.1 * float((q[:64] @ items[:4096].T).abs().mean())
     bias = torch.from_numpy(rng.normal(0, scale, RETR_ITEMS).astype(np.float32)).to(dev)
-    large = RETR_ITEMS >= FUSED_RETRIEVAL_MIN_ITEMS
+    large = fused_route("cuda", RETR_QUERIES, RETR_ITEMS, 10) and fused_route("cuda", RETR_QUERIES, RETR_ITEMS, 64)
     log(f"retrieval: {RETR_QUERIES} trained user rows x {RETR_ITEMS} items (the trained table of {len(i_np)} tiled with jitter)")
 
     # the retrieval path: counts are read from these calls alone
@@ -776,23 +1017,30 @@ def retrieval_phase(dev, scorer, rng: np.random.Generator) -> dict:
             f"{RETR_QUERIES * 8 / sum(times):.4e} queries/s (min call {min(times) * 1e3:.3f} ms, max {max(times) * 1e3:.3f} ms)"
         )
 
-    # the routes beside the kernel: a list longer than the kernel takes, and the small catalog
+    # the routes beside the kernel: a list longer than the kernel takes; and the small catalog, on the
+    # route the dispatch rule gives it
     before = read_counts()["mips_topk"]
     ts = time.perf_counter()
     v100, i100 = retrieval_topk(q, items, 100)
     i100.cpu()
     t100 = time.perf_counter() - ts
-    small = items[:N_ITEMS].contiguous()
-    vs, ixs = retrieval_topk(q, small, 10)
-    torch.cuda.synchronize()
     if read_counts()["mips_topk"] != before:
-        raise AssertionError("k=100 and the small catalog must not launch the kernel")
+        raise AssertionError("k=100 must not launch the kernel")
     if not (torch.equal(i100[:, :10], results["k=10"][1]) or (v100[:, :10] - results["k=10"][0]).abs().max() < 1e-4):
         raise AssertionError("k=100 (torch.topk route) disagrees with the kernel's top 10")
+    small = items[:N_ITEMS].contiguous()
+    fused_small = fused_route("cuda", RETR_QUERIES, N_ITEMS, 10)
+    vs, ixs = retrieval_topk(q, small, 10)
+    torch.cuda.synchronize()
+    if read_counts()["mips_topk"] != before + int(fused_small):
+        raise AssertionError(f"the {N_ITEMS}-item call must take the route of the dispatch rule (fused: {fused_small})")
     ref = torch.topk(q @ small.T, 10, dim=1)
-    if not torch.equal(vs, ref.values):
-        raise AssertionError("small-catalog route must be the product and torch.topk")
-    log(f"retrieval k=100 (product + torch.topk in row chunks, 0 launches): one call {t100:.4f}s; {N_ITEMS}-item call: 0 launches")
+    if not torch.allclose(vs, ref.values, rtol=1e-5, atol=1e-5):
+        raise AssertionError("the small catalog's scores disagree with the product and torch.topk")
+    log(
+        f"retrieval k=100 (product + torch.topk in row chunks, 0 launches): one call {t100:.4f}s; "
+        f"{N_ITEMS}-item call: {int(fused_small)} launches, scores as torch.topk(q @ I.T)"
+    )
     return launches
 
 
@@ -949,7 +1197,8 @@ def main() -> int:
     import lkpy_tpu_torch  # noqa: F401 — fails where the port is absent
     from lkpy_tpu_torch.ops import _build
     from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
-    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
+    from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
+    from lkpy_tpu_torch.ops.spd_solve_chunked import register_route_info, spd_solve_chunked, spd_solve_chunked_plain
 
     missing = {"mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
     if missing:
@@ -978,12 +1227,21 @@ def main() -> int:
     with ThreadPoolExecutor(len(names)) as pool:
         build_s = dict(zip(names, pool.map(timed_load, names)))
     log(f"build: {build_s} ({time.perf_counter() - t0:.2f}s in all)")
+    if sys.argv[1:] == ["--sweeps"]:
+        sweeps(dev)
+        log(card)
+        return 0
 
     spd = solve_kernel_phase("spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, 1e-4, 7, dev)
+    # plain_tol 1e-5: the register route rounds otherwise than the plain version (fmaf, a reciprocal of the
+    # pivot); on these well-conditioned systems (eigenvalues in about [1, 5]) they differ by under 1e-6
     chunked = solve_kernel_phase(
         "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES, CHUNKED_MAIN_SHAPE,
-        CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev,
+        CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev, previous=lambda A, y: launch_chunked(A, y, "shared"),
     )  # fmt: skip
+    singular_neighbours_phase(dev)
+    chunked["register_route"] = [register_route_info(k) for k in (32, 64, 96, 128)]
+    log(f"spd_solve_chunked register route as compiled: {chunked['register_route']}")
     topk = topk_kernel_phase(dev)
 
     # bench.py's interactions, made once; each path continues the generator

@@ -3,12 +3,19 @@ Batched small-SPD solve for ALS training: the epoch's row solves.
 
 Port of ``lkpy_tpu/ops/pallas_gj.py::spd_solve_lanes_chunked``, whose Pallas
 kernel (``_gj_block_kernel``, blocked Gauss-Jordan with the batch on the
-TPU's lanes) becomes the hand-written CUDA kernel
-``csrc/spd_solve_chunked.cu``: one warp per system, as many systems per
-thread block as shared memory holds, a packed lower triangle in shared
-memory, Cholesky with the forward substitution folded in, then the back
-substitution.  The batch comes first, with the TPU kernel's C chunks of B
-systems flattened into N = C·B, and k is taken as it is (1 ≤ k ≤ 256).
+TPU's lanes) becomes the hand-written CUDA kernels of
+``csrc/spd_solve_chunked.cu``.  The batch comes first, with the TPU kernel's
+C chunks of B systems flattened into N = C·B, and k is taken as it is
+(1 ≤ k ≤ 256).  Two routes, chosen from k alone (:func:`solve_route`):
+
+- ``"registers"``, k ≤ 128: a warp (two or four warps from k = 65 on) holds
+  the system's lower triangle in registers through an LDLᵀ elimination and
+  both substitutions; k is padded to 32, 64, 96 or 128 inside the kernel.
+  It uses fused multiply-adds and a reciprocal of the pivot, so it agrees
+  with the plain version to rounding, not to the bit.
+- ``"shared"``, 128 < k ≤ 256: one warp per system, a packed lower triangle
+  in shared memory, Cholesky with the forward substitution folded in, then
+  the back substitution, in the plain version's operation order.
 
 :func:`spd_solve_chunked` launches the kernel for CUDA tensors and runs
 :func:`spd_solve_chunked_plain` for CPU tensors.
@@ -23,20 +30,40 @@ import torch
 
 from lkpy_tpu_torch.ops.spd_solve import spd_solve_plain
 
-__all__ = ["spd_solve_chunked", "spd_solve_chunked_plain"]
+__all__ = ["MAX_REGISTER_K", "spd_solve_chunked", "spd_solve_chunked_plain", "solve_route"]
 
-#: the largest k the kernel's shared-memory layout takes
+#: the largest k the shared-memory route's layout takes
 MAX_K = 256
+#: the largest k the register route has a template instance for
+MAX_REGISTER_K = 128
+#: the padded widths the register route is compiled for
+REGISTER_WIDTHS = (32, 64, 96, 128)
 
-_fn = None
+_fns: dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def solve_route(k: int) -> str:
+    """The kernel route a width takes on the card: ``"registers"`` up to
+    :data:`MAX_REGISTER_K`, ``"shared"`` above it."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"spd_solve_chunked takes 1 <= k <= {MAX_K}, got k={k}")
+    return "registers" if k <= MAX_REGISTER_K else "shared"
+
+
+def padded_width(k: int) -> int:
+    """The template width the register route pads ``k`` to inside the kernel."""
+    if not 1 <= k <= MAX_REGISTER_K:
+        raise ValueError(f"the register route takes 1 <= k <= {MAX_REGISTER_K}, got k={k}")
+    return next(w for w in REGISTER_WIDTHS if k <= w)
+
+
+def _kernel(route: str):
+    fn = _fns.get(route)
+    if fn is None:
         from lkpy_tpu_torch.ops._build import load
 
-        fn = load("spd_solve_chunked").lkt_spd_solve_chunked_f32
+        lib = load("spd_solve_chunked")
+        fn = {"registers": lib.lkt_spd_solve_chunked_reg_f32, "shared": lib.lkt_spd_solve_chunked_shared_f32}[route]
         fn.argtypes = [
             ctypes.c_void_p,
             ctypes.c_void_p,
@@ -46,8 +73,25 @@ def _kernel():
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return fn
+
+
+def register_route_info(k: int) -> dict:
+    """Registers a thread, static shared memory and threads a block, and
+    spilled bytes a thread of the register route's instance for ``k``, as
+    compiled (needs the card's toolkit)."""
+    from lkpy_tpu_torch.ops._build import load
+
+    fn = load("spd_solve_chunked").lkt_spd_solve_chunked_reg_info
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = fn(padded_width(k), *(ctypes.byref(o) for o in out))
+    if err != 0:
+        raise RuntimeError(f"spd_solve_chunked: reading the kernel's attributes failed with CUDA error {err}")
+    regs, smem, threads, local = (o.value for o in out)
+    return dict(width=padded_width(k), registers=regs, shared_bytes=smem, threads=threads, local_bytes=local)
 
 
 def _check(A: torch.Tensor, y: torch.Tensor) -> tuple[int, int]:
@@ -80,38 +124,48 @@ def spd_solve_chunked(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         values in that system's row only (LAPACK ``sposv``'s contract and
         the TPU kernel's).
 
-    CUDA tensors go to the kernel (contiguous inputs required); CPU tensors
-    go to :func:`spd_solve_chunked_plain`.
+    CUDA tensors go to the kernel of :func:`solve_route` (contiguous inputs
+    required); CPU tensors go to :func:`spd_solve_chunked_plain`.
     """
     N, k = _check(A, y)
     if A.device.type == "cpu":
         return spd_solve_chunked_plain(A, y)
-    if A.device.type != "cuda":
-        raise ValueError(f"spd_solve_chunked runs on cuda or cpu, not {A.device}")
-    if not (A.is_contiguous() and y.is_contiguous()):
-        raise ValueError("spd_solve_chunked's kernel takes contiguous A and y")
-    x = torch.empty_like(y)
-    if N == 0:
-        return x
-    fn = _kernel()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), y.data_ptr(), x.data_ptr(), N, k, stream)
-    if err != 0:
-        raise RuntimeError(f"spd_solve_chunked kernel launch failed with CUDA error {err} (N={N}, k={k})")
-    spd_solve_chunked.launches += 1
-    return x
+    return _launch(A, y, solve_route(k))
 
 
 spd_solve_chunked.launches = 0
 
 
+def _launch(A: torch.Tensor, y: torch.Tensor, route: str) -> torch.Tensor:
+    """Launch the kernel of ``route`` on CUDA tensors (``"shared"`` takes any
+    k, so the two routes can be timed side by side at one shape)."""
+    N, k = _check(A, y)
+    if A.device.type != "cuda":
+        raise ValueError(f"spd_solve_chunked runs on cuda or cpu, not {A.device}")
+    if route == "registers" and k > MAX_REGISTER_K:
+        raise ValueError(f"the register route takes k <= {MAX_REGISTER_K}, got k={k}")
+    if not (A.is_contiguous() and y.is_contiguous()):
+        raise ValueError("spd_solve_chunked's kernel takes contiguous A and y")
+    x = torch.empty_like(y)
+    if N == 0:
+        return x
+    fn = _kernel(route)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = fn(A.data_ptr(), y.data_ptr(), x.data_ptr(), N, k, stream)
+    if err != 0:
+        raise RuntimeError(f"spd_solve_chunked kernel ({route}) launch failed with CUDA error {err} (N={N}, k={k})")
+    spd_solve_chunked.launches += 1
+    return x
+
+
 def spd_solve_chunked_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch.  The warp kernel walks the same
-    operations in the same order as B2's kernel (right-looking Cholesky
-    over the columns with the forward substitution folded in, then the back
-    substitution, each product, difference and quotient rounded once), so
-    the plain version is :func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_plain`.
-    Works on any device."""
+    """The reference arithmetic in PyTorch: right-looking Cholesky over the
+    columns with the forward substitution folded in, then the back
+    substitution, each product, difference and quotient rounded once
+    (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_plain`).  The
+    shared-memory route walks the same operations in the same order; the
+    register route eliminates the same columns without the square root and
+    with fused multiply-adds, and agrees to rounding.  Works on any device."""
     _check(A, y)
     return spd_solve_plain(A, y)

@@ -15,14 +15,25 @@ import torch
 
 from lkpy_tpu_torch.ops.mips_topk import MAX_FUSED_K, mips_topk
 
-__all__ = ["FUSED_RETRIEVAL_MIN_ITEMS", "argtopn", "masked_top_k", "retrieval_topk", "top_n_indices"]
+__all__ = ["FUSED_RETRIEVAL_MIN_ITEMS", "argtopn", "fused_route", "masked_top_k", "retrieval_topk", "top_n_indices"]
 
-#: catalog size from which retrieval on the card takes the fused kernel.
-#: The value is the JAX package's dispatch point, measured on a TPU; it is
-#: kept so that the same call takes the same route in both packages.  Where
-#: kernel and ``torch.topk`` cross on the H100 is what PERF.md reports
-#: (``chip_smoke.py`` times both at 27,000 and at 500,000 items).
-FUSED_RETRIEVAL_MIN_ITEMS = 200_000
+#: catalog size from which retrieval on the card takes the fused kernel.  Set
+#: on an NVIDIA H100 80GB HBM3 (700 W): at k = 10 the kernel was faster than
+#: ``torch.topk(q @ I.T)`` at every catalog from 27,000 to 500,000 items and
+#: every batch of 64, 1,024 and 4,096 queries that ``chip_smoke.py`` times
+#: (1.2× at 64 × 27,000, 2.4× at 64 × 500,000, 4.3× at 4,096 × 500,000;
+#: PERF.md), so the batch plays no part; smaller catalogs were not measured
+#: and stay on the library route.  The JAX package's point is 200,000.
+FUSED_RETRIEVAL_MIN_ITEMS = 27_000
+#: catalog size from which the product + ``torch.topk`` route scores the
+#: queries in row chunks (the JAX package's point for the same)
+LARGE_CATALOG_ITEMS = 200_000
+
+
+def fused_route(device_type: str, B: int, N: int, k: int) -> bool:
+    """Does ``retrieval_topk`` take the fused kernel for ``B`` queries
+    against ``N`` items on a device of this type?  A pure function."""
+    return device_type == "cuda" and N >= FUSED_RETRIEVAL_MIN_ITEMS and 1 <= k <= MAX_FUSED_K
 
 
 def retrieval_topk(
@@ -41,29 +52,24 @@ def retrieval_topk(
     Dispatch:
 
     - CUDA tensors, at least :data:`FUSED_RETRIEVAL_MIN_ITEMS` items and
-      ``k`` ≤ :data:`~lkpy_tpu_torch.ops.mips_topk.MAX_FUSED_K`: the fused
-      kernel, which never writes the scores to device memory;
-    - otherwise the product and ``torch.topk``; for a large catalog in row
-      chunks of ``chunk``, so that only a (chunk, N) slab of scores exists
-      at a time.
+      ``k`` ≤ :data:`~lkpy_tpu_torch.ops.mips_topk.MAX_FUSED_K`
+      (:func:`fused_route`): the fused kernel, which never writes the
+      scores to device memory and spreads a small batch over the card by
+      splitting the items;
+    - otherwise the product and ``torch.topk``; for a catalog of at least
+      :data:`LARGE_CATALOG_ITEMS` in row chunks of ``chunk``, so that only
+      a (chunk, N) slab of scores exists at a time.
 
     Every route is exact, so ``exact`` and ``recall_target`` (the JAX
     package's switch to the TPU's approximate top-k) change nothing here.
     CPU tensors take the plain route, as the JAX package does off the TPU.
 
-    The dispatch looks at the catalog and ``k`` only, not at the batch.  The
-    kernel gives a block 32 queries, so a small batch leaves most of the card
-    idle: on an H100, 64 queries against 500,000 items took 11.1 ms through
-    the kernel and 0.68 ms as ``torch.topk(q @ I.T)`` (PERF.md), while 4,096
-    queries took 11.1 ms against 31.6 ms.  A caller with a small batch and a
-    large catalog on the card gets the slower route for now.
-
     Returns (scores (B, k) descending, item indices (B, k) int32).
     """
     B = queries.shape[0]
-    large = items.shape[0] >= FUSED_RETRIEVAL_MIN_ITEMS
-    if queries.is_cuda and large and k <= MAX_FUSED_K:
+    if fused_route(queries.device.type, B, items.shape[0], k):
         return mips_topk(queries, items, k, i_bias=i_bias)
+    large = items.shape[0] >= LARGE_CATALOG_ITEMS
     rows = max(1, min(chunk, B)) if large else max(B, 1)
     vals = torch.empty((B, k), dtype=torch.float32, device=queries.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=queries.device)

@@ -17,11 +17,13 @@ from lkpy_tpu_torch.data import from_interactions_df
 from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.als import implicit_otor
-from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, mips_topk, mips_topk_plain
+from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _launch as launch_topk
+from lkpy_tpu_torch.ops.mips_topk import _merge_lists, _merge_lists_plain, choose_splits, mips_topk, mips_topk_plain, range_items
 from lkpy_tpu_torch.ops.sparse import bucket_rows
 from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
-from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
-from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, retrieval_topk
+from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
+from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route, spd_solve_chunked, spd_solve_chunked_plain
+from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, fused_route, retrieval_topk
 from lkpy_tpu_torch.training import TrainingOptions
 
 pytestmark = pytest.mark.cuda
@@ -98,17 +100,67 @@ def test_chunked_kernel_matches_plain(cuda, N, k):
     x = spd_solve_chunked(A, y)
     torch.cuda.synchronize()
     assert spd_solve_chunked.launches == before + 1
-    # the same f32 operations in the same order on both sides
-    torch.testing.assert_close(x, spd_solve_chunked_plain(A, y), rtol=1e-5, atol=1e-6)
+    _assert_solves_agree(x, spd_solve_chunked_plain(A, y), A, y)
 
 
-def test_chunked_kernel_zero_systems_are_nonfinite(cuda):
+def _assert_solves_agree(x, plain, A, y):
+    """Kernel against plain.  The shared-memory route does the plain version's
+    operations in its order; the register route eliminates without the square
+    root, with fmaf and a reciprocal of the pivot, so the two round
+    differently and differ by the conditioning times f32's epsilon (these
+    systems: X Xᵀ + 2 I, condition number up to about 2k).  Both are held to
+    a float64 solve, and to each other at the size of their own error."""
+    x64 = torch.linalg.solve(A.double(), y.double()[:, :, None])[:, :, 0]
+    scale = x64.abs().amax(dim=1, keepdim=True)
+    err_plain = float(((plain.double() - x64).abs() / scale).max())
+    err_kernel = float(((x.double() - x64).abs() / scale).max())
+    assert err_kernel <= max(2 * err_plain, 1e-6)
+    assert float(((x - plain).abs() / scale).max()) <= max(3 * err_plain, 1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 31, 32, 33, 50, 64, 65, 96, 128, 129, 256])
+@pytest.mark.parametrize("N", [1, 7, 1000])
+def test_chunked_routes_match_plain(cuda, N, k):
+    rng = np.random.default_rng(1000 * N + k)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, N, k))
+    plain = spd_solve_chunked_plain(A, y)
+    routes = dict.fromkeys([solve_route(k), "shared"])  # the route the wrapper takes, and the general one
+    assert ("registers" in routes) == (k <= 128)
+    for route in routes:
+        before = spd_solve_chunked.launches
+        x = launch_chunked(A, y, route)
+        torch.cuda.synchronize()
+        assert spd_solve_chunked.launches == before + 1
+        if route == "shared":
+            # the same f32 operations in the same order on both sides
+            torch.testing.assert_close(x, plain, rtol=1e-5, atol=1e-6)
+        else:
+            _assert_solves_agree(x, plain, A, y)
+    if k > 128:
+        with pytest.raises(ValueError):
+            launch_chunked(A, y, "registers")
+
+
+@pytest.mark.parametrize("k", [50, 64, 96, 129])
+def test_chunked_kernel_zero_systems_are_nonfinite(cuda, k):
     rng = np.random.default_rng(8)
-    A, y = _spd_batch(rng, 20, 64)
-    A[[3, 11]] = 0.0
-    x = spd_solve_chunked(torch.from_numpy(A).to(cuda), torch.from_numpy(y).to(cuda)).cpu().numpy()
-    assert not np.isfinite(x[[3, 11]]).any()
-    assert np.isfinite(np.delete(x, [3, 11], axis=0)).all()
+    A, y = _spd_batch(rng, 20, k)
+    A0 = A.copy()
+    A0[[3, 11]] = 0.0
+    A0[7] = -A0[7]
+    clean = spd_solve_chunked(torch.from_numpy(A).to(cuda), torch.from_numpy(y).to(cuda)).cpu().numpy()
+    x = spd_solve_chunked(torch.from_numpy(A0).to(cuda), torch.from_numpy(y).to(cuda)).cpu().numpy()
+    assert not np.isfinite(x[[3, 7, 11]]).any()
+    # the neighbours of a singular system come out as without it, to the bit
+    np.testing.assert_array_equal(np.delete(x, [3, 7, 11], axis=0), np.delete(clean, [3, 7, 11], axis=0))
+
+
+def test_chunked_register_route_reads_the_lower_triangle_only(cuda):
+    rng = np.random.default_rng(3)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 50, 50))
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones(50, 50, dtype=torch.bool, device=cuda), 1)] = float("nan")
+    assert torch.equal(spd_solve_chunked(junk, y), spd_solve_chunked(A, y))
 
 
 def _interaction_csr(rng, n_users=400, n_items=150, mode="implicit"):
@@ -207,6 +259,66 @@ def test_mips_topk_kernel_matches_plain(cuda, B, N, D, k, variant):
         assert not excl.gather(1, got[1].long()).any()
 
 
+def _splits_there(B, N, D):
+    """Every S the wrapper can choose for a catalog of N items: 1 up to the
+    count of shortest ranges, thinned where there are many."""
+    most = max(1, N // 1024)
+    picks = {1, 2, 3, most, choose_splits(B, N, torch.cuda.get_device_properties(0).multi_processor_count, 32)}
+    picks |= set(np.linspace(1, most, 6).astype(int).tolist())
+    return sorted(s for s in picks if 1 <= s <= most)
+
+
+@pytest.mark.parametrize("B", [1, 37, 64, 1024])
+@pytest.mark.parametrize("N,D", [(9_000, 64), (2_049, 48), (70_001, 64)])  # ragged against the 256-item tile and the ranges
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("product", [0, 1])
+def test_mips_topk_every_split_matches_plain(cuda, B, N, D, k, product):
+    rng, q, items = _topk_inputs(cuda, B + N + k, B, N, D)
+    items[N // 2 : N // 2 + 200] = items[:200]  # equal scores in far-apart ranges
+    excl = (torch.rand((B, N), device=cuda) < 0.02).to(torch.int8)
+    excl[0] = 1  # a row with nothing scoreable
+    want = mips_topk_plain(q, items, k, exclude=excl)
+    seen = set()
+    for forced in [None, *_splits_there(B, N, D)]:
+        before = mips_topk.launches
+        got = launch_topk(q, items, k, None, excl, splits=forced, product=product)
+        torch.cuda.synchronize()
+        assert mips_topk.launches == before + 1  # one call is one launch, whatever S is
+        S = mips_topk.last_splits
+        assert S == -(-N // range_items(N, S))
+        seen.add(S)
+        _assert_topk_close(got, want)
+        assert (got[1][0] == INT32_MAX).all()
+        tied = torch.isfinite(got[0][:, 1:]) & (got[0][:, :-1] == got[0][:, 1:])
+        assert (got[1][:, :-1] < got[1][:, 1:])[tied].all()
+    assert len(seen) > 1
+
+
+@pytest.mark.parametrize("product", [0, 1])
+def test_mips_topk_k_past_the_catalog_under_splits(cuda, product):
+    _, q, items = _topk_inputs(cuda, 4, 37, 3000, 32)
+    for n, forced in [(5, None), (3000, 2), (1500, 1)]:
+        got = launch_topk(q, items[:n].contiguous(), 64, splits=forced, product=product)
+        _assert_topk_close(got, mips_topk_plain(q, items[:n].contiguous(), 64))
+        assert (got[1][:, min(n, 64) :] == INT32_MAX).all()
+
+
+@pytest.mark.parametrize("B,S,k", [(1, 2, 1), (37, 7, 10), (64, 66, 10), (300, 3, 64), (5, 200, 64)])
+def test_merge_kernel_matches_plain(cuda, B, S, k):
+    g = torch.Generator(device=cuda).manual_seed(B * S + k)
+    v = torch.randint(0, 3 * k, (B, S, k), device=cuda, generator=g).float().sort(dim=2, descending=True).values
+    i = torch.rand((B, S, 500), device=cuda, generator=g).argsort(dim=2)[:, :, :k].sort(dim=2).values.int()
+    i += 500 * torch.arange(S, device=cuda, dtype=torch.int32)[None, :, None]
+    empty = torch.arange(k, device=cuda)[None, None, :] >= torch.randint(0, k + 1, (B, S, 1), device=cuda, generator=g)
+    v[empty], i[empty] = -torch.inf, INT32_MAX
+    before = mips_topk.launches
+    got = _merge_lists(v.contiguous(), i.contiguous())
+    torch.cuda.synchronize()
+    assert mips_topk.launches == before  # the merge alone is no launch of mips_topk
+    want = _merge_lists_plain(v, i)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_mips_topk_ties_and_empty_slots(cuda):
     rng, q, items = _topk_inputs(cuda, 9, 40, 3000, 32)
     items[1500:] = items[:1500]  # item 1500 + j scores bit-equal to item j
@@ -244,7 +356,7 @@ def test_retrieval_topk_dispatch(cuda):
         b = bias[: len(items)]
         before = mips_topk.launches
         v, i = retrieval_topk(q, items, k, i_bias=b, exact=exact, chunk=16)
-        assert mips_topk.launches == before + launches
+        assert mips_topk.launches == before + launches == before + int(fused_route("cuda", 64, len(items), k))
         assert i.dtype == torch.int32 and v.shape == (64, k)
         pv, pi = torch.topk(q @ items.T + b, k)
         torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)

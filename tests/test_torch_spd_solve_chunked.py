@@ -15,7 +15,14 @@ import jax.numpy as jnp
 
 from lkpy_tpu.ops.pallas_gj import spd_solve_lanes_chunked
 from lkpy_tpu_torch.ops.spd_solve import spd_solve_plain
-from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
+from lkpy_tpu_torch.ops.spd_solve_chunked import (
+    MAX_REGISTER_K,
+    REGISTER_WIDTHS,
+    padded_width,
+    solve_route,
+    spd_solve_chunked,
+    spd_solve_chunked_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -93,3 +100,65 @@ def test_rejects_other_devices():
     A = torch.eye(4, device="meta").expand(2, 4, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         spd_solve_chunked(A, torch.zeros(2, 4, device="meta"))
+
+
+@pytest.mark.parametrize(
+    "k,route",
+    [(1, "registers"), (32, "registers"), (50, "registers"), (64, "registers"), (65, "registers"), (96, "registers"),
+     (128, "registers"), (129, "shared"), (200, "shared"), (256, "shared")],
+)  # fmt: skip
+def test_route_is_chosen_from_k_alone(k, route):
+    assert solve_route(k) == route
+    assert (k <= MAX_REGISTER_K) == (route == "registers")
+
+
+@pytest.mark.parametrize("k", [0, -3, 257])
+def test_route_rejects_widths_outside_the_contract(k):
+    with pytest.raises(ValueError):
+        solve_route(k)
+
+
+@pytest.mark.parametrize("k,width", [(1, 32), (7, 32), (32, 32), (33, 64), (50, 64), (64, 64), (65, 96), (96, 96), (97, 128), (128, 128)])
+def test_padded_width_is_the_next_template_width(k, width):
+    assert padded_width(k) == width and width in REGISTER_WIDTHS
+    assert REGISTER_WIDTHS[-1] == MAX_REGISTER_K
+    with pytest.raises(ValueError):
+        padded_width(MAX_REGISTER_K + 1)
+
+
+@pytest.mark.parametrize("k,width", [(50, 64), (7, 32), (33, 64), (70, 96)])
+def test_identity_padding_leaves_the_solution_unchanged(k, width):
+    # what the register route does inside the kernel, shown on the plain version: bordering A with an
+    # identity block and y with zeros solves to the unpadded solution, bit for bit, then zeros
+    rng = np.random.default_rng(k)
+    A, y = (torch.from_numpy(a) for a in _spd_batch(rng, 9, k))
+    Ap = torch.eye(width).repeat(9, 1, 1)
+    Ap[:, :k, :k] = A
+    yp = torch.zeros(9, width)
+    yp[:, :k] = y
+    x, xp = spd_solve_chunked_plain(A, y), spd_solve_chunked_plain(Ap, yp)
+    np.testing.assert_array_equal(xp[:, :k].numpy(), x.numpy())
+    assert (xp[:, k:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [50, 64, 129])
+def test_singular_systems_among_regular_ones_leave_the_regular_rows_unchanged(k):
+    rng = np.random.default_rng(100 + k)
+    A, y = (torch.from_numpy(a) for a in _spd_batch(rng, 12, k))
+    A0 = A.clone()
+    A0[[0, 5, 6, 11]] = 0.0
+    A0[3] = -A0[3]  # a negative pivot spoils its own row too
+    clean, got = spd_solve_chunked(A, y), spd_solve_chunked(A0, y)
+    bad = [0, 3, 5, 6, 11]
+    good = [i for i in range(12) if i not in bad]
+    assert not torch.isfinite(got[bad]).any()
+    np.testing.assert_array_equal(got[good].numpy(), clean[good].numpy())
+
+
+def test_only_the_lower_triangle_is_read():
+    rng = np.random.default_rng(9)
+    A, y = (torch.from_numpy(a) for a in _spd_batch(rng, 5, 20))
+    upper = torch.triu(torch.ones(20, 20, dtype=torch.bool), 1)
+    junk = A.clone()
+    junk[:, upper] = 1e9
+    np.testing.assert_array_equal(spd_solve_chunked(junk, y).numpy(), spd_solve_chunked(A, y).numpy())

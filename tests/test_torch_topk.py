@@ -21,7 +21,9 @@ torch.set_num_threads(1)
 
 
 def test_exports_and_threshold_match_the_jax_package():
-    assert topk.FUSED_RETRIEVAL_MIN_ITEMS == jax_topk.FUSED_RETRIEVAL_MIN_ITEMS == 200_000
+    # the row-chunking point is the JAX package's; the fused kernel's own point was measured on the card
+    assert topk.LARGE_CATALOG_ITEMS == jax_topk.FUSED_RETRIEVAL_MIN_ITEMS == 200_000
+    assert topk.FUSED_RETRIEVAL_MIN_ITEMS == 27_000
     assert set(jax_topk.__all__) <= set(topk.__all__)
     for name in ("masked_top_k", "top_n_indices", "segment_sum", "segment_count", "segment_mean"):
         assert name in jax_ops.__all__ and name in ops.__all__ and callable(getattr(ops, name))
@@ -52,7 +54,7 @@ def test_retrieval_topk_matches_jax(biased, exact, k):
 def test_retrieval_topk_large_catalog_matches_jax(k, chunk):
     # past the fused threshold the CPU still takes the plain route, in row chunks
     rng = np.random.default_rng(5)
-    n = topk.FUSED_RETRIEVAL_MIN_ITEMS + 17
+    n = max(topk.FUSED_RETRIEVAL_MIN_ITEMS, topk.LARGE_CATALOG_ITEMS) + 17
     Q = rng.standard_normal((4, 8)).astype(np.float32)
     I = rng.standard_normal((n, 8)).astype(np.float32)
     bias = rng.standard_normal(n).astype(np.float32)
@@ -101,3 +103,33 @@ def test_argtopn_matches_jax(n):
     full = topk.argtopn(scores)
     np.testing.assert_array_equal(full, [2, 5, 0, 3, 7, 4])
     assert len(got) == (6 if n is None or n < 0 else min(n, 6))
+
+
+@pytest.mark.parametrize(
+    "device_type,B,N,k,fused",
+    [
+        ("cuda", 64, 500_000, 10, True),
+        ("cuda", 4096, 500_000, 64, True),
+        ("cuda", 64, 27_000, 10, True),  # the batch plays no part
+        ("cuda", 1, 27_000, 1, True),
+        ("cuda", 4096, 26_999, 10, False),  # below the smallest catalog measured
+        ("cuda", 4096, 500_000, 65, False),  # a list longer than the kernel keeps
+        ("cuda", 4096, 500_000, 0, False),
+        ("cpu", 4096, 500_000, 10, False),  # CPU tensors always take the plain route
+        ("meta", 64, 500_000, 10, False),
+    ],
+)
+def test_fused_route_is_a_pure_rule(device_type, B, N, k, fused):
+    assert topk.fused_route(device_type, B, N, k) is fused
+
+
+def test_cpu_tensors_take_the_plain_route_at_every_size():
+    rng = np.random.default_rng(4)
+    Q = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+    for n in (topk.FUSED_RETRIEVAL_MIN_ITEMS - 1, topk.FUSED_RETRIEVAL_MIN_ITEMS, topk.LARGE_CATALOG_ITEMS):
+        I = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32))
+        before = mips_topk.launches
+        v, i = topk.retrieval_topk(Q, I, 5)
+        assert mips_topk.launches == before
+        ref = torch.topk(Q @ I.T, 5)
+        assert torch.equal(v, ref.values) and torch.equal(i, ref.indices.to(torch.int32))
