@@ -7,10 +7,15 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and a library
-   yardstick: the fold-in solve (``spd_solve``), the training solve
+   yardstick: the fold-in solve (``spd_solve``: the route its shape takes
+   beside the kernel's first form at every shape, every compiled thread
+   mapping against ``cholesky`` + ``cholesky_solve`` and the training solve
+   on a grid of batch sizes and widths, which ``fold_route`` is held
+   against, and one system's chain alone), the training solve
    (``spd_solve_chunked``: the register route beside the shared-memory
-   route at every shape, widths on both sides of each route boundary,
-   singular systems among regular ones) and the fused MIPS top-k
+   route at every shape, widths on both sides of each route boundary),
+   singular systems among regular ones on every route of both solves, and
+   the fused MIPS top-k
    (``mips_topk``: the number of item ranges per case, the merge kernel
    alone, the three-pass TF32 product beside the f32 FMA product, ties
    across a range boundary, and kernel against ``torch.topk(q @ I.T)`` on
@@ -87,9 +92,14 @@ EXPLICIT_FEATURES = 50
 LARGEST_CHUNK_ROWS = 30024
 
 #: (B, k) shapes of the fold-in solve's kernel phase: the serving block and
-#: batch at k=64, the explicit family's serving block at k=50, then ragged
-#: and extreme widths
-SPD_SHAPES = [(1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1000, 50), (7, 8), (333, 128), (64, 256)]
+#: batch at k=64, the explicit family's serving block at k=50, then widths on
+#: both sides of every boundary of the register route's templates (32, 64,
+#: 96, 128) and of the route boundary (128 | 129), odd widths, and batches
+#: that are no multiple of the systems a block
+SPD_SHAPES = [
+    (1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1000, 50), (7, 8), (1000, 32), (1001, 33), (1023, 63),
+    (1000, 65), (500, 96), (501, 97), (333, 128), (333, 129), (64, 256),
+]  # fmt: skip
 SPD_MAIN_SHAPE = (SERVE_CHUNK, FEATURES)
 SPD_EXPLICIT_SHAPE = (SERVE_CHUNK, EXPLICIT_FEATURES)
 #: (N, k) shapes of the training solve's kernel phase: the largest chunk of
@@ -102,6 +112,13 @@ CHUNKED_SHAPES = [
 ]  # fmt: skip
 #: (N, k, every) batches with a zero system at every ``every``-th place
 SINGULAR_SHAPES = [(1000, 64, 7), (1000, EXPLICIT_FEATURES, 3), (300, 96, 5), (200, 129, 4)]
+#: batch sizes and widths on which every thread mapping of the fold-in solve
+#: is timed: what ``fold_route`` is set from
+FOLD_GRID_B = [1, 64, 256, 512, 1024, 4096, 16384]
+FOLD_GRID_K = [32, 50, 64, 96, 128]
+#: cycles the card spins before a timing starts (over 2 ms), so that the
+#: host has the launches queued before the first one runs
+HOLD_CYCLES = 5_000_000
 CHUNKED_MAIN_SHAPE = (LARGEST_CHUNK_ROWS, FEATURES)
 CHUNKED_EXPLICIT_SHAPE = (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES)
 
@@ -172,11 +189,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events around ``reps`` calls."""
+    """Mean device time of ``fn()`` in ms, by CUDA events around ``reps`` calls.
+    The card spins first while the host queues the calls, so that a kernel
+    shorter than its wrapper's host time is timed back to back."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -203,18 +223,19 @@ def spd_inputs(rng: np.random.Generator, B: int, k: int, dev):
 
 
 def solve_kernel_phase(
-    name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev, previous=None
+    name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev, previous, route_of
 ) -> dict:
     """Hold one SPD-solve kernel against its plain version and a float64
     solve at each shape, time kernel, plain version and
     ``cholesky`` + ``cholesky_solve``, and check that a zero system gives
     non-finite output in its own row only.  ``previous`` is the kernel's
-    earlier design (the general route), held against the plain version and
-    timed at the same shapes in the same run.  Returns the main shape's row
-    of the kernels line, with the explicit path's shape under ``explicit``
-    and every shape's times under ``shapes``."""
-    from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route
-
+    earlier design (the shared-memory route), held against the plain version
+    and the float64 solve and timed at the same shapes in the same run;
+    ``route_of(B, k)`` names the route the kernel takes.  At the two path
+    shapes the kernel must beat the earlier design and be no slower than the
+    library call.  Returns the main shape's row of the kernels line, with
+    the explicit path's shape under ``explicit`` and every shape's times
+    under ``shapes``."""
     rng = np.random.default_rng(seed)
     row = explicit = None
     by_shape = []
@@ -226,42 +247,53 @@ def solve_kernel_phase(
         torch.cuda.synchronize()
         abs_err = float((x - p).abs().max())
         rel_err = abs_err / float(p.abs().max())
-        previous_ms = None
-        if previous is not None:
-            xp = previous(A, y)
-            torch.cuda.synchronize()
-            prev_err = float((xp - p).abs().max() / p.abs().max())
-            if not prev_err <= plain_tol:
-                raise AssertionError(f"{name} ({B},{k}): the general route vs plain max relative error {prev_err}")
-            previous_ms = cuda_ms(lambda: previous(A, y), reps=20)
         x64 = torch.linalg.solve(A.double(), y.double())
+        xp = previous(A, y)
+        torch.cuda.synchronize()
+        prev_err = float((xp - p).abs().max() / p.abs().max())
+        prev_err64 = float((xp.double() - x64).abs().max() / x64.abs().max())
+        if not (prev_err <= plain_tol and prev_err64 <= 1e-4):
+            raise AssertionError(f"{name} ({B},{k}): the shared-memory route vs plain {prev_err}, vs float64 {prev_err64}")
         err64 = float((x.double() - x64).abs().max() / x64.abs().max())
         resid = float((A.double() @ x.double()[:, :, None])[:, :, 0].sub(y.double()).abs().max() / y.abs().max())
         if not (np.isfinite(abs_err) and rel_err <= plain_tol):
             raise AssertionError(f"{name} ({B},{k}): kernel vs plain max relative error {rel_err}")
         if not (err64 <= 1e-4 and resid <= 1e-4):
             raise AssertionError(f"{name} ({B},{k}): error vs float64 {err64}, residual {resid}")
-        ms = cuda_ms(lambda: kernel(A, y), reps=20)
+        ms = cuda_ms(lambda: kernel(A, y), reps=50)
+        previous_ms = cuda_ms(lambda: previous(A, y), reps=50)
         plain_ms = cuda_ms(lambda: plain(A, y), reps=3, warm=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
         bound_ms, bound_by = spd_bound(B, k)
+        route = route_of(B, k)
         log(
             f"{name} B={B} k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"cholesky+cholesky_solve {lib_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, "
             f"kernel {ms / bound_ms:.1f}x); vs plain max abs {abs_err:.3e} rel {rel_err:.3e}; "
             f"vs float64 {err64:.3e}; residual {resid:.3e}"
         )
-        measured = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
-        if previous is not None:
-            route = solve_route(k)
-            log(
-                f"{name} B={B} k={k}: route {route}; the general (shared-memory) route, the design before, "
-                f"{previous_ms:.4f} ms in the same run ({previous_ms / ms:.2f}x the kernel's time)"
-            )
-            measured.update(solve_route=route, previous_ms=previous_ms)
-            by_shape.append(dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, rel_err_vs_plain=rel_err))
-            if (B, k) in (main_shape, explicit_shape) and not ms < previous_ms:
+        log(
+            f"{name} B={B} k={k}: route {route}; the shared-memory route, the design before, "
+            f"{previous_ms:.4f} ms in the same run ({previous_ms / ms:.2f}x the kernel's time)"
+        )
+        measured = dict(
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            solve_route=route, previous_ms=previous_ms,
+        )  # fmt: skip
+        by_shape.append(dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, library_ms=lib_ms, rel_err_vs_plain=rel_err))
+        if (B, k) in (main_shape, explicit_shape):
+            # on an idle card the host sets the pace where the wrapper's own time is longer than the kernel's
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                kernel(A, y)
+            torch.cuda.synchronize()
+            measured["host_paced_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+            log(f"{name} B={B} k={k}: {measured['host_paced_ms']:.4f} ms a call on the host's clock, 50 calls into an idle card")
+            if not ms < previous_ms:
                 raise AssertionError(f"{name} ({B},{k}): the register route ({ms} ms) must beat the design before ({previous_ms} ms)")
+            if not ms <= lib_ms:
+                raise AssertionError(f"{name} ({B},{k}): the kernel ({ms} ms) must be no slower than cholesky + cholesky_solve ({lib_ms} ms)")
         if (B, k) == main_shape:
             row = measured
         if (B, k) == explicit_shape:
@@ -275,16 +307,78 @@ def solve_kernel_phase(
     if torch.isfinite(x[[1, 3]]).any() or not torch.isfinite(x[[0, 2, 4]]).all():
         raise AssertionError(f"{name}: a zero system must give non-finite output, the others finite")
     log(f"{name} zero systems: non-finite output in their own rows only, as required")
-    if previous is not None:
-        return dict(row, explicit=explicit, shapes=by_shape)
-    return dict(row, explicit=explicit)
+    return dict(row, explicit=explicit, shapes=by_shape)
+
+
+def fold_grid_phase(dev) -> dict:
+    """Time every compiled thread mapping of ``spd_solve`` on a grid of batch
+    sizes and widths, beside the kernel's first form (the shared-memory
+    route), ``spd_solve_chunked`` and ``cholesky`` + ``cholesky_solve`` at
+    the same shape, each mapping held against a float64 solve.  The mapping
+    ``fold_route`` takes must be within 10 % of the fastest at the two
+    serving shapes.  Then one system's chain alone: the time of B = 1 and of
+    B = 132 (a system an SM) over the 2k dependent steps."""
+    from lkpy_tpu_torch.ops.spd_solve import _launch, fold_mappings, fold_route, register_route_info
+    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
+
+    rng = np.random.default_rng(13)
+    grid = []
+    agree = 0
+    for k in FOLD_GRID_K:
+        A_all, y_all = spd_inputs(rng, max(FOLD_GRID_B), k, dev)
+        x64_all = torch.linalg.solve(A_all.double(), y_all.double())
+        for B in FOLD_GRID_B:
+            A, y, x64 = A_all[:B], y_all[:B], x64_all[:B]
+            taken = fold_route(B, k)
+            ms = {}
+            for route, threads in fold_mappings(k):
+                x = _launch(A, y, route, threads)
+                torch.cuda.synchronize()
+                err64 = float((x.double() - x64).abs().max() / x64.abs().max())
+                if not err64 <= 1e-4:
+                    raise AssertionError(f"spd_solve ({B},{k}) {route} over {threads} threads: error vs float64 {err64}")
+                ms[(route, threads)] = cuda_ms(lambda: _launch(A, y, route, threads), reps=50)
+            chunked_ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=50)
+            lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
+            best = min(ms, key=ms.get)
+            ok = ms[taken] <= 1.1 * ms[best]
+            agree += ok
+            cells = ", ".join(f"{r} x{t} {v:.4f}{'*' if (r, t) == taken else ''}" for (r, t), v in ms.items())
+            log(
+                f"fold grid B={B} k={k}: {cells} ms (* fold_route's); spd_solve_chunked {chunked_ms:.4f} ms, "
+                f"cholesky+cholesky_solve {lib_ms:.4f} ms"
+                + ("" if ok else f": the mapping taken is SLOWER than {best} by more than 10 %")
+            )
+            grid.append(dict(B=B, k=k, taken=list(taken), ms={f"{r}-{t}": v for (r, t), v in ms.items()},
+                             chunked_ms=chunked_ms, library_ms=lib_ms))  # fmt: skip
+            if (B, k) in (SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE) and not ok:
+                raise AssertionError(f"fold_route({B}, {k}) = {taken} loses to {best} by more than 10 %: {ms}")
+    log(f"fold_route: the mapping taken is within 10 % of the fastest on {agree} of {len(grid)} grid points")
+    # the floor of one system's dependent chain, the card otherwise idle: one system, and one an SM
+    chain = []
+    for k in (FEATURES, EXPLICIT_FEATURES):
+        A, y = spd_inputs(rng, 132, k, dev)
+        for route, threads in fold_mappings(k)[:-1]:
+            one = cuda_ms(lambda: _launch(A[:1], y[:1], route, threads), reps=50)
+            per_sm = cuda_ms(lambda: _launch(A, y, route, threads), reps=50)
+            log(
+                f"spd_solve chain floor k={k}, {threads} threads a system: B=1 {one * 1e3:.2f} us, B=132 {per_sm * 1e3:.2f} us: "
+                f"{one * 1e6 / (2 * k):.1f} ns a step over 2k = {2 * k} dependent steps"
+            )
+            chain.append(dict(k=k, threads=threads, one_system_ms=one, one_per_sm_ms=per_sm, steps=2 * k))
+    info = [register_route_info(k, t) for k in (32, 64, 96, 128) for r, t in fold_mappings(k) if r == "registers"]
+    log(f"spd_solve register route as compiled: {info}")
+    return dict(grid=grid, chain_floor=chain, register_route=info)
 
 
 def singular_neighbours_phase(dev) -> None:
-    """Zero systems among regular ones (explicit ALS's padding rows): on
-    both routes of ``spd_solve_chunked`` the zero systems' rows are
-    non-finite and every other row is, to the bit, what the same kernel
-    gives for the batch without them."""
+    """Zero systems among regular ones (explicit ALS's padding rows, the
+    explicit fold-in of a user without history): on both routes of
+    ``spd_solve_chunked`` and on every route and thread mapping of
+    ``spd_solve`` the zero systems' rows are non-finite and every other row
+    is, to the bit, what the same kernel gives for the batch without them."""
+    from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
+    from lkpy_tpu_torch.ops.spd_solve import fold_mappings
     from lkpy_tpu_torch.ops.spd_solve_chunked import _launch, solve_route
 
     rng = np.random.default_rng(12)
@@ -293,15 +387,17 @@ def singular_neighbours_phase(dev) -> None:
         zero = torch.arange(N, device=dev) % every == 1
         A0 = A.clone()
         A0[zero] = 0.0
-        for route in dict.fromkeys([solve_route(k), "shared"]):
-            clean = _launch(A, y, route)
-            got = _launch(A0, y, route)
+        launches = {f"spd_solve_chunked {route}": (_launch, (route,)) for route in dict.fromkeys([solve_route(k), "shared"])}
+        launches.update({f"spd_solve {route} x{threads}": (launch_fold, (route, threads)) for route, threads in fold_mappings(k)})
+        for label, (launch, args) in launches.items():
+            clean = launch(A, y, *args)
+            got = launch(A0, y, *args)
             torch.cuda.synchronize()
             if torch.isfinite(got[zero]).any():
-                raise AssertionError(f"spd_solve_chunked ({N},{k}) {route}: a zero system gave finite output")
+                raise AssertionError(f"{label} ({N},{k}): a zero system gave finite output")
             if not torch.equal(got[~zero], clean[~zero]):
-                raise AssertionError(f"spd_solve_chunked ({N},{k}) {route}: a zero system disturbed its neighbours")
-        log(f"spd_solve_chunked ({N},{k}): {int(zero.sum())} zero systems, their neighbours unchanged to the bit on every route")
+                raise AssertionError(f"{label} ({N},{k}): a zero system disturbed its neighbours")
+        log(f"({N},{k}): {int(zero.sum())} zero systems, their neighbours unchanged to the bit on {sorted(launches)}")
 
 
 def synth_interactions(rng: np.random.Generator):
@@ -483,6 +579,7 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
         lambda: device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev),
         float(np.mean(times)) * 1e3,
         "one serving call",
+        mark="spd_solve",
     )
     return launches
 
@@ -1196,9 +1293,12 @@ def main() -> int:
         return 1
     import lkpy_tpu_torch  # noqa: F401 — fails where the port is absent
     from lkpy_tpu_torch.ops import _build
-    from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+    from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
+    from lkpy_tpu_torch.ops.spd_solve import fold_mappings, fold_route, spd_solve, spd_solve_plain
     from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
-    from lkpy_tpu_torch.ops.spd_solve_chunked import register_route_info, spd_solve_chunked, spd_solve_chunked_plain
+    from lkpy_tpu_torch.ops.spd_solve_chunked import (
+        register_route_info, solve_route, spd_solve_chunked, spd_solve_chunked_plain,
+    )  # fmt: skip
 
     missing = {"mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
     if missing:
@@ -1232,12 +1332,17 @@ def main() -> int:
         log(card)
         return 0
 
-    spd = solve_kernel_phase("spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, 1e-4, 7, dev)
     # plain_tol 1e-5: the register route rounds otherwise than the plain version (fmaf, a reciprocal of the
     # pivot); on these well-conditioned systems (eigenvalues in about [1, 5]) they differ by under 1e-6
+    spd = solve_kernel_phase(
+        "spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, 1e-5, 7, dev,
+        previous=lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]), route_of=lambda B, k: "%s x%d" % fold_route(B, k),
+    )  # fmt: skip
+    spd.update(fold_grid_phase(dev))
     chunked = solve_kernel_phase(
         "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES, CHUNKED_MAIN_SHAPE,
         CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev, previous=lambda A, y: launch_chunked(A, y, "shared"),
+        route_of=lambda N, k: solve_route(k),
     )  # fmt: skip
     singular_neighbours_phase(dev)
     chunked["register_route"] = [register_route_info(k) for k in (32, 64, 96, 128)]

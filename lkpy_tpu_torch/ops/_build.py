@@ -4,9 +4,10 @@ Build the port's CUDA kernels at first use.
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, ``build/lkpy_tpu_torch/lib<name>-<hash>.so`` under the
 repository root, and is loaded with :mod:`ctypes`.  The file name carries a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is reused.  Nothing but the repository's own sources goes
-into a build.
+hash of the source, of every header under ``csrc/`` that it includes (by
+``#include "..."``, directly or through another such header) and of the
+flags, so an edited source or header builds anew and an unchanged one is
+reused.  Nothing but the repository's own sources goes into a build.
 """
 
 from __future__ import annotations
@@ -14,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "library_path", "load", "sources"]
+__all__ = ["NVCC_FLAGS", "library_path", "load", "source_files", "sources"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "lkpy_tpu_torch"
@@ -46,11 +48,35 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the headers under ``csrc/`` that it includes in
+    quotes, directly or through one another, each once, in the order found.
+    A quoted header that is missing raises."""
+    found: list[Path] = []
+    todo = [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / inc.decode()).resolve()
+            if not header.is_file():
+                raise FileNotFoundError(f"{path.name} includes \"{inc.decode()}\", which is not under {_CSRC}")
+            todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:
@@ -59,6 +85,7 @@ def _compile(name: str) -> Path:
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    # a quoted include is looked up beside the file that names it, so csrc's headers need no -I
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:

@@ -64,7 +64,9 @@ _CHUNK_ENTRIES = 4_000_000
 def batched_spd_solve(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Solve ``A x = y`` for a batch of small SPD systems (B, k, k) × (B, k),
     through the fold-in SPD-solve kernel on the card (its plain version on
-    the CPU)."""
+    the CPU): in registers over 32, 64 or 128 threads a system for k ≤ 128,
+    the mapping chosen from (B, k) by ``ops/spd_solve.py::fold_route``, in
+    shared memory above."""
     return spd_solve(A, y)
 
 

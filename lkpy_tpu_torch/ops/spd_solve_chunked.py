@@ -10,7 +10,8 @@ C chunks of B systems flattened into N = C·B, and k is taken as it is
 
 - ``"registers"``, k ≤ 128: a warp (two or four warps from k = 65 on) holds
   the system's lower triangle in registers through an LDLᵀ elimination and
-  both substitutions; k is padded to 32, 64, 96 or 128 inside the kernel.
+  both substitutions (``csrc/spd_register.cuh``, which the fold-in solve
+  shares); k is padded to 32, 64, 96 or 128 inside the kernel.
   It uses fused multiply-adds and a reciprocal of the pivot, so it agrees
   with the plain version to rounding, not to the bit.
 - ``"shared"``, 128 < k ≤ 256: one warp per system, a packed lower triangle
@@ -28,16 +29,12 @@ import ctypes
 
 import torch
 
-from lkpy_tpu_torch.ops.spd_solve import spd_solve_plain
+from lkpy_tpu_torch.ops.spd_solve import MAX_K, MAX_REGISTER_K, REGISTER_THREADS, padded_width, spd_solve_plain
 
 __all__ = ["MAX_REGISTER_K", "spd_solve_chunked", "spd_solve_chunked_plain", "solve_route"]
 
-#: the largest k the shared-memory route's layout takes
-MAX_K = 256
-#: the largest k the register route has a template instance for
-MAX_REGISTER_K = 128
-#: the padded widths the register route is compiled for
-REGISTER_WIDTHS = (32, 64, 96, 128)
+#: the padded widths the register route is compiled for (the fold-in solve's too)
+REGISTER_WIDTHS = tuple(REGISTER_THREADS)
 
 _fns: dict[str, object] = {}
 
@@ -48,13 +45,6 @@ def solve_route(k: int) -> str:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"spd_solve_chunked takes 1 <= k <= {MAX_K}, got k={k}")
     return "registers" if k <= MAX_REGISTER_K else "shared"
-
-
-def padded_width(k: int) -> int:
-    """The template width the register route pads ``k`` to inside the kernel."""
-    if not 1 <= k <= MAX_REGISTER_K:
-        raise ValueError(f"the register route takes 1 <= k <= {MAX_REGISTER_K}, got k={k}")
-    return next(w for w in REGISTER_WIDTHS if k <= w)
 
 
 def _kernel(route: str):

@@ -20,7 +20,8 @@ from lkpy_tpu_torch.ops.als import implicit_otor
 from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _launch as launch_topk
 from lkpy_tpu_torch.ops.mips_topk import _merge_lists, _merge_lists_plain, choose_splits, mips_topk, mips_topk_plain, range_items
 from lkpy_tpu_torch.ops.sparse import bucket_rows
-from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+from lkpy_tpu_torch.ops.spd_solve import fold_mappings, fold_route, spd_solve, spd_solve_plain
+from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
 from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
 from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route, spd_solve_chunked, spd_solve_chunked_plain
 from lkpy_tpu_torch.ops.topk import FUSED_RETRIEVAL_MIN_ITEMS, fused_route, retrieval_topk
@@ -52,8 +53,71 @@ def test_kernel_matches_plain(cuda, B, k):
     x = spd_solve(A, y)
     torch.cuda.synchronize()
     assert spd_solve.launches == before + 1
-    # the same f32 operations in the same order on both sides
-    torch.testing.assert_close(x, spd_solve_plain(A, y), rtol=1e-4, atol=1e-6)
+    _assert_fold_agrees(x, spd_solve_plain(A, y), A, y, fold_route(B, k)[0])
+
+
+def _assert_fold_agrees(x, plain, A, y, route):
+    if route == "shared":
+        # the same f32 operations in the same order on both sides
+        torch.testing.assert_close(x, plain, rtol=1e-5, atol=1e-6)
+    else:
+        _assert_solves_agree(x, plain, A, y)
+
+
+@pytest.mark.parametrize("k", [8, 50, 63, 64, 65, 128, 129, 256])
+@pytest.mark.parametrize("B", [1, 37, 1001])  # 37 and 1001: no multiple of the two or four systems a block
+def test_fold_mappings_match_plain_and_float64(cuda, B, k):
+    rng = np.random.default_rng(1000 * B + k)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, B, k))
+    plain = spd_solve_plain(A, y)
+    mappings = fold_mappings(k)
+    assert fold_route(B, k) in mappings
+    for route, threads in mappings:
+        before = spd_solve.launches
+        x = launch_fold(A, y, route, threads)
+        torch.cuda.synchronize()
+        assert spd_solve.launches == before + 1
+        _assert_fold_agrees(x, plain, A, y, route)
+    with pytest.raises(ValueError):
+        launch_fold(A, y, "registers", 96)
+
+
+@pytest.mark.parametrize("k,offset", [(64, 1), (64, 2), (50, 1), (50, 2), (63, 1), (8, 3)])
+def test_fold_misaligned_inputs_take_the_narrow_loads(cuda, k, offset):
+    # A starting `offset` floats into its storage is aligned to 4 or 8 bytes, not 16: the kernel loads it
+    # float by float or in 8-byte halves, and the result is the aligned one's to the bit
+    rng = np.random.default_rng(k + offset)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 50, k))
+    shifted = torch.empty(A.numel() + offset, device=cuda)[offset:].view_as(A).copy_(A)
+    y_shifted = torch.empty(y.numel() + 1, device=cuda)[1:].view_as(y).copy_(y)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    for route, threads in fold_mappings(k):
+        assert torch.equal(launch_fold(shifted, y_shifted, route, threads), launch_fold(A, y, route, threads))
+
+
+@pytest.mark.parametrize("k", [50, 64, 96, 128, 129])
+def test_fold_zero_systems_leave_their_neighbours_alone(cuda, k):
+    # the explicit fold-in of a user without history has A = 0
+    rng = np.random.default_rng(8)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 21, k))
+    A0 = A.clone()
+    A0[[3, 4, 11, 20]] = 0.0
+    A0[7] = -A0[7]
+    bad = torch.zeros(21, dtype=torch.bool, device=cuda)
+    bad[[3, 4, 7, 11, 20]] = True
+    for route, threads in fold_mappings(k):
+        clean, x = launch_fold(A, y, route, threads), launch_fold(A0, y, route, threads)
+        assert not torch.isfinite(x[bad]).any()
+        assert torch.equal(x[~bad], clean[~bad])
+
+
+def test_fold_register_route_reads_the_lower_triangle_only(cuda):
+    rng = np.random.default_rng(3)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 50, 50))
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones(50, 50, dtype=torch.bool, device=cuda), 1)] = float("nan")
+    for route, threads in fold_mappings(50):
+        assert torch.equal(launch_fold(junk, y, route, threads), launch_fold(A, y, route, threads))
 
 
 def test_kernel_zero_diagonal_is_nonfinite(cuda):
