@@ -20,11 +20,16 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    alone, the three-pass TF32 product beside the f32 FMA product, ties
    across a range boundary, and kernel against ``torch.topk(q @ I.T)`` on
    a grid of catalog and batch sizes, which the dispatch of
-   ``retrieval_topk`` is held against).
+   ``retrieval_topk`` is held against), and the row gather
+   (``gather_rows``, bit for bit against ``index_select`` at the shapes of
+   ``benchmarks/probe_gather.py`` and at edge cases; at the epochs' own
+   shapes within the training phases).
 3. Makes bench.py's synthetic ML-20M-scale interactions (138k users x 27k
    items, seed 42) once, and drives the paths of the port at full width,
    each with the launch counters set to 0 just before it and read just
    after:
+   every path checks that the solves and the row gather launched once a
+   chunk or a block:
    - serving: ``device_recommend`` with fold-in of 16,384 users, random
      factors (``features=64``), checked against a float64 NumPy/SciPy oracle
      and timed;
@@ -38,7 +43,11 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    - the explicit family: ``BiasedMFScorer.train`` (``features=50``) on
      bench.py's synthetic ratings over the same split, hold-out RMSE through
      the scorer against the bias-only RMSE, then ``device_recommend`` with
-     the explicit fold-in of 16,384 users against a float64 oracle.
+     the explicit fold-in of 16,384 users against a float64 oracle;
+   - the user's path: ``topn_pipeline(ImplicitMFScorer(...), n=10)`` →
+     ``Pipeline.train`` → ``lkpy_tpu_torch.batch.recommend`` of the 10,000
+     test users through the device route (NDCG@10 against the direct
+     path's), and per-query ``recommend`` against the batch lists.
 4. Prints one JSON line describing each kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -55,6 +64,7 @@ were set from).
 
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -148,6 +158,22 @@ GRID_QUERIES = [64, 1024, 4096]
 #: H100 SXM dense TF32 tensor-core rate; the three-pass product does 3x the operations
 PEAK_TF32_FLOP_PER_S = 495e12
 
+#: the row gather at the probe's shapes (benchmarks/probe_gather.py): its
+#: tables of 27,000 and 131,072 rows of 128 floats and, from its docstring,
+#: 27,000 rows of 64, each gathered by its Pallas kernels' 65,536 rows a call
+#: and its XLA baseline's 4,194,304
+GATHER_PROBE_TABLES = [(27_000, 128), (131_072, 128), (27_000, 64)]
+GATHER_PROBE_ROWS = [1 << 16, 1 << 22]
+#: (K, M) edge cases of the row gather: widths that take 4-, 8- and 16-byte
+#: vectors, rows wider than a warp's 32 vectors, no rows
+GATHER_EDGE_CASES = [(1, 37), (3, 37), (50, 1), (63, 37), (64, 1), (65, 1000), (128, 37), (256, 37), (64, 0)]
+#: users of the per-query check of the pipeline phase
+PER_QUERY_USERS = 20
+#: how far the pipeline's NDCG@10 may lie from the direct path's, each served
+#: the same way (fold-in, and from the user table): the two train from
+#: different seeds, since a pipeline derives its scorer's from the node name
+NDCG_PIPELINE_TOL = 0.005
+
 #: hold-out RMSE bounds of the explicit model on bench.py's synthetic
 #: ratings: the JAX package's recorded run scored 0.5782 against a bias-only
 #: 0.7424 there (BENCH_r05.json)
@@ -161,11 +187,17 @@ def log(*args):
 
 def kernel_wrappers() -> dict:
     """The port's kernel wrappers by name; each counts its launches."""
+    from lkpy_tpu_torch.ops.gather_rows import gather_rows
     from lkpy_tpu_torch.ops.mips_topk import mips_topk
     from lkpy_tpu_torch.ops.spd_solve import spd_solve
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
 
-    return {"spd_solve": spd_solve, "spd_solve_chunked": spd_solve_chunked, "mips_topk": mips_topk}
+    return {
+        "spd_solve": spd_solve,
+        "spd_solve_chunked": spd_solve_chunked,
+        "mips_topk": mips_topk,
+        "gather_rows": gather_rows,
+    }
 
 
 def zero_counts() -> None:
@@ -400,6 +432,85 @@ def singular_neighbours_phase(dev) -> None:
         log(f"({N},{k}): {int(zero.sum())} zero systems, their neighbours unchanged to the bit on {sorted(launches)}")
 
 
+def gather_bound(table, idx) -> tuple[float, str]:
+    """Least time (ms) for ``table[idx]``: the output written once, the
+    indices read once and each table row that this ``idx`` touches read
+    once; nothing is computed, so bytes bound it."""
+    M, K = idx.numel(), table.shape[1]
+    touched = int(torch.unique(idx).numel()) if M else 0
+    nbytes = M * K * 4 + M * idx.element_size() + touched * K * 4
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def gather_case(label: str, table, idx, reps: int = 20) -> dict:
+    """Hold the row-gather kernel against ``index_select`` (its plain
+    version) bit for bit, and time kernel, plain version and one
+    ``torch.index_select`` call beside its bytes bound."""
+    from lkpy_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain, vector_width
+
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    want = gather_rows_plain(table, idx)
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"gather_rows {label}: the kernel differs from index_select")
+    M, K = idx.numel(), table.shape[1]
+    row = dict(label=label, table=list(table.shape), rows=M, index_type=str(idx.dtype).removeprefix("torch."), max_abs_err=0.0)
+    if M == 0:
+        log(f"gather_rows {label}: no rows, equal (empty)")
+        return row
+    ms = cuda_ms(lambda: gather_rows(table, idx), reps)
+    plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx), reps)
+    lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx.reshape(-1)), reps)
+    bound_ms, bound_by = gather_bound(table, idx)
+    width = vector_width(table, got.view(M, K))
+    log(
+        f"gather_rows {label}: table {tuple(table.shape)}, {M} {row['index_type']} rows: kernel {ms:.4f} ms "
+        f"({M * K * 4 / ms / 1e9:.3f} TB/s written, {width * 4}-byte vectors), plain {plain_ms:.4f} ms, "
+        f"index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x, "
+        f"index_select {lib_ms / bound_ms:.2f}x); equal to the bit"
+    )
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, vector_bytes=width * 4)
+    return row
+
+
+def gather_kernel_phase(dev) -> list:
+    """The row gather at the probe's own shapes, and its edge cases: odd
+    widths, no rows, a table that is a view 4 bytes past an aligned start
+    and one whose rows lie further apart than their width, int64 rows."""
+    rng = np.random.default_rng(42)
+    rows = []
+    for n, K in GATHER_PROBE_TABLES:
+        table = torch.from_numpy(rng.standard_normal((n, K), dtype=np.float32)).to(dev)
+        for M in GATHER_PROBE_ROWS:
+            idx = torch.from_numpy(rng.integers(0, n, M).astype(np.int32)).to(dev)
+            rows.append(gather_case(f"probe ({n}, {K}) x {M}", table, idx, reps=20 if M < (1 << 20) else 10))
+        del table
+    edge = np.random.default_rng(43)
+    for K, M in GATHER_EDGE_CASES:
+        table = torch.from_numpy(edge.standard_normal((5000, K), dtype=np.float32)).to(dev)
+        idx = torch.from_numpy(edge.integers(0, 5000, M).astype(np.int32)).to(dev)
+        if M > 1:
+            idx[0], idx[-1] = 0, 4999
+        gather_case(f"edge K={K} M={M}", table, idx, reps=5)
+    base = torch.from_numpy(edge.standard_normal(400 * 67 + 1, dtype=np.float32)).to(dev)
+    idx64 = torch.from_numpy(edge.integers(0, 400, (64, 37))).to(dev)
+    gather_case("edge view 4 bytes past an aligned start, int64 rows", base[1 : 1 + 400 * 64].view(400, 64), idx64, reps=5)
+    gather_case("edge rows 67 floats apart at an offset, int64 rows", base[: 400 * 67].view(400, 67)[:, 3:53], idx64, reps=5)
+    return rows
+
+
+def gather_epoch_cases(trainer, k: int) -> list:
+    """The row gather at an epoch's own shapes: the user half's largest
+    chunk against the item table, and the item half's widest chunk against
+    the user table, with the training run's own column numbers."""
+    u_chunk = max((c for c in trainer.u_buckets), key=lambda c: c.cols.shape[1] * c.cols.shape[2])
+    i_chunk = max((c for c in trainer.i_buckets), key=lambda c: c.cols.shape[2])
+    return [
+        gather_case(f"epoch k={k}: user chunk {tuple(u_chunk.cols.shape[1:])} of the item table", trainer.i_factors, u_chunk.cols[0]),
+        gather_case(f"epoch k={k}: widest item chunk {tuple(i_chunk.cols.shape[1:])} of the user table", trainer.u_factors, i_chunk.cols[0]),
+    ]
+
+
 def synth_interactions(rng: np.random.Generator):
     """bench.py's generator: MovieLens-like popularity skew plus planted
     user-group/item-group structure, deduplicated."""
@@ -539,8 +650,9 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
     warm_s = time.perf_counter() - tw
     launches = read_counts()
     log(f"serving path: device_recommend of {SERVE_USERS} users, first call {warm_s:.3f}s; launches {launches}")
-    if launches["spd_solve"] == 0:
-        raise AssertionError("the serving path launched no spd_solve kernel")
+    blocks = -(-SERVE_USERS // SERVE_CHUNK)
+    if launches["spd_solve"] != blocks or launches["gather_rows"] != blocks:
+        raise AssertionError(f"the serving path must launch spd_solve and gather_rows once a block ({blocks}): {launches}")
 
     if len(recs) != SERVE_USERS:
         raise AssertionError(f"{len(recs)} lists for {SERVE_USERS} users")
@@ -625,8 +737,8 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
         f"training path: ImplicitMFScorer.train, {EPOCHS} epochs, {train_s:.3f}s with set-up; launches {launches}, "
         f"{launches['spd_solve_chunked'] / EPOCHS:g} spd_solve_chunked launches per epoch"
     )
-    if launches["spd_solve_chunked"] == 0:
-        raise AssertionError("the training path launched no spd_solve_chunked kernel")
+    if launches["spd_solve_chunked"] == 0 or launches["gather_rows"] != launches["spd_solve_chunked"]:
+        raise AssertionError(f"the training path must launch spd_solve_chunked and gather_rows once a chunk: {launches}")
     for name in ("user_embeddings", "item_embeddings", "_OtOr"):
         t = getattr(scorer, name)
         if t.device.type != dev.type or not torch.isfinite(t).all():
@@ -637,6 +749,7 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     log("chunks: users " + str([tuple(c.cols.shape) for c in trainer.u_buckets]))
     log("chunks: items " + str([tuple(c.cols.shape) for c in trainer.i_buckets]))
     check_chunk_rows(trainer, FEATURES)
+    gather_epoch = gather_epoch_cases(trainer, FEATURES)
     times, deltas = [], []
     for _ in range(EPOCHS):
         ts = time.perf_counter()
@@ -693,12 +806,13 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     fold.load_parameters(scorer.get_parameters())
     fold._OtOr, fold.users, fold.items = scorer._OtOr, scorer.users, scorer.items
     serve = np.random.default_rng(4).choice(ds.users.ids, size=SERVE_USERS, replace=False)
+    blocks = -(-SERVE_USERS // SERVE_CHUNK)
     zero_counts()
     recs = device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
     served = read_counts()
     log(f"trained scorer, fold-in serving of {SERVE_USERS} users: launches {served}")
-    if served["spd_solve"] == 0:
-        raise AssertionError("fold-in serving of the trained scorer launched no spd_solve kernel")
+    if served["spd_solve"] != blocks or served["gather_rows"] != blocks:
+        raise AssertionError(f"fold-in serving of the trained scorer must launch spd_solve and gather_rows once a block: {served}")
     check_lists(recs, csr, ds.users, SERVE_N)
     Y32 = scorer.item_embeddings.double().cpu().numpy()
     otor = scorer._OtOr.double().cpu().numpy()
@@ -714,7 +828,15 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     )
     if score_err > 1e-3:
         raise AssertionError(f"trained fold-in check failed: score error {score_err}")
-    split = dict(scorer=scorer, tr_u=tr_u, tr_i=tr_i, test_u=test_u, test_i=test_i, rng=rng)
+    # NDCG@10 of the same trained tables with every test user folded in, as the pipeline phase serves them
+    recs = device_recommend(fold, np.unique(test_u), 10, matrix, device=dev)
+    nd_fold = ndcg10(rec_users, [list(recs.lookup(u).ids()) for u in rec_users], test_u, test_i)
+    log(f"NDCG@10 on the held-out split with fold-in of the test users: {nd_fold:.4f} (from the user table {nd:.4f})")
+    split = dict(
+        scorer=scorer, ds=ds, tr_u=tr_u, tr_i=tr_i, test_u=test_u, test_i=test_i, rng=rng, ndcg=nd, ndcg_fold=nd_fold,
+        gather_epoch=gather_epoch,
+        chunks_per_epoch=sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets),
+    )  # fmt: skip
     return launches, served, split
 
 
@@ -1207,8 +1329,9 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
         f"explicit training path: BiasedMFScorer.train, k={EXPLICIT_FEATURES}, {EPOCHS} epochs, {train_s:.3f}s with set-up "
         f"(bias fit included); launches {launches}; {per_epoch} chunks per epoch"
     )
-    if launches["spd_solve_chunked"] != per_epoch * EPOCHS:
-        raise AssertionError(f"explicit training must launch spd_solve_chunked once a chunk: {launches}, {per_epoch} chunks")
+    if launches["spd_solve_chunked"] != per_epoch * EPOCHS or launches["gather_rows"] != per_epoch * EPOCHS:
+        raise AssertionError(f"explicit training must launch spd_solve_chunked and gather_rows once a chunk: {launches}, {per_epoch} chunks")
+    split["gather_epoch"] += gather_epoch_cases(trainer, EXPLICIT_FEATURES)
     for name in ("user_embeddings", "item_embeddings"):
         t = getattr(scorer, name)
         if t.device.type != dev.type or not torch.isfinite(t).all():
@@ -1258,8 +1381,9 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
     first_s = time.perf_counter() - tw
     served = read_counts()
     log(f"explicit serving path: device_recommend of {SERVE_USERS} users with fold-in, first call {first_s:.3f}s; launches {served}")
-    if served["spd_solve"] == 0:
-        raise AssertionError("explicit fold-in serving launched no spd_solve kernel")
+    blocks = -(-SERVE_USERS // SERVE_CHUNK)
+    if served["spd_solve"] != blocks or served["gather_rows"] != blocks:
+        raise AssertionError(f"explicit fold-in serving must launch spd_solve and gather_rows once a block ({blocks}): {served}")
     if len(recs) != SERVE_USERS:
         raise AssertionError(f"{len(recs)} lists for {SERVE_USERS} users")
     check_lists(recs, csr, ds.users, SERVE_N)
@@ -1287,6 +1411,109 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
     return launches, served
 
 
+def same_ids_at_clear_gaps(got, want) -> bool:
+    """Equal item ids wherever the score gap to the next rank exceeds 1e-4."""
+    s = want.scores()
+    gap = np.abs(np.diff(s)) > 1e-4
+    clear = np.ones(len(s), bool)
+    clear[:-1] &= gap
+    clear[1:] &= gap
+    clear[-1] = False  # the rank below the last is not known
+    return len(got) == len(want) and bool((np.asarray(got.ids())[clear] == np.asarray(want.ids())[clear]).all())
+
+
+def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
+    """The user's path: ``topn_pipeline(ImplicitMFScorer(...), n=10)`` →
+    ``Pipeline.train`` on bench.py's split → ``recommend(pipe, users, n=10)``
+    for the held-out split's test users, which takes the device route
+    (``try_device_recommend``, fold-in of every user: B2 and the row gather
+    once a block).  NDCG@10 against the direct path's, and per-query
+    ``operations.recommend`` against the batch lists.  Returns the launches
+    of the training call and of the serving call."""
+    import lkpy_tpu_torch
+    from lkpy_tpu_torch.batch import device as batch_device
+    from lkpy_tpu_torch.batch import recommend
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
+    # user_embeddings=True, the reference's default: the batch route folds each user in ("prefer" would serve
+    # the trained user table and run neither B2 nor the gather)
+    scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, weight=40.0, regularization=0.1, user_embeddings=True)
+    pipe = lkpy_tpu_torch.topn_pipeline(scorer, n=10)
+    zero_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    pipe.train(ds, TrainingOptions(rng=42))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - tw
+    trained = read_counts()
+    per_epoch = split["chunks_per_epoch"]
+    log(f"pipeline path: Pipeline.train, {train_s:.3f}s with set-up (every component); launches {trained}")
+    if trained["spd_solve_chunked"] != per_epoch * EPOCHS or trained["gather_rows"] != per_epoch * EPOCHS or trained["spd_solve"]:
+        raise AssertionError(f"Pipeline.train must launch B1 and the gather once a chunk ({per_epoch * EPOCHS}): {trained}")
+    if scorer.item_embeddings.device.type != dev.type or not torch.isfinite(scorer.item_embeddings).all():
+        raise AssertionError("the pipeline's trained item table must be finite and on the card")
+
+    users = np.unique(test_u)
+    taken = []
+    route = batch_device.try_device_recommend
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        taken.append(out)
+        return out
+
+    batch_device.try_device_recommend = recording
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        recs = recommend(pipe, users, n=10)
+        serve_s = time.perf_counter() - tw
+        served = read_counts()
+    finally:
+        batch_device.try_device_recommend = route
+    # recommend serves in device_recommend's default block of users
+    block = inspect.signature(batch_device.device_recommend_async).parameters["chunk"].default
+    blocks = -(-len(users) // block)
+    log(f"pipeline path: recommend of {len(users)} users, n=10, {serve_s:.3f}s; launches {served}; {blocks} blocks")
+    if len(taken) != 1 or taken[0] is None or taken[0] is not recs:
+        raise AssertionError("recommend(pipe, users, n=10) must take the device route (try_device_recommend)")
+    if served["spd_solve"] != blocks or served["gather_rows"] != blocks or served["spd_solve_chunked"]:
+        raise AssertionError(f"the pipeline's serving call must launch B2 and the gather once a block ({blocks}): {served}")
+    rec_users, rec10 = [], []
+    for key, il in recs.items():
+        rec_users.append(key[0])
+        rec10.append(list(il.ids()))
+    nd = ndcg10(rec_users, rec10, test_u, test_i)
+    # the same trained tables served from the user table, as "prefer" (and the direct path) would serve them
+    table_route = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, user_embeddings="prefer")
+    table_route.load_parameters(scorer.get_parameters())
+    table_route.users, table_route.items = scorer.users, scorer.items
+    lookup = pipe.node("history-lookup").component
+    by_table = batch_device.device_recommend(table_route, users, 10, lookup.interactions, device=dev)
+    nd_table = ndcg10(rec_users, [list(by_table.lookup(u).ids()) for u in rec_users], test_u, test_i)
+    log(
+        f"pipeline NDCG@10 on the held-out split: {nd:.4f} with fold-in, {nd_table:.4f} from its user table "
+        f"(direct path {split['ndcg_fold']:.4f} and {split['ndcg']:.4f}, {len(rec_users)} users)"
+    )
+    if not (nd >= NDCG_MIN and max(abs(nd - split["ndcg_fold"]), abs(nd_table - split["ndcg"])) <= NDCG_PIPELINE_TOL):
+        raise AssertionError(
+            f"pipeline NDCG@10 {nd} (fold-in), {nd_table} (user table) must be >= {NDCG_MIN} and within "
+            f"{NDCG_PIPELINE_TOL} of the direct path's {split['ndcg_fold']}, {split['ndcg']}"
+        )
+
+    # per query: history lookup, candidates, the scorer's host fold-in, the ranker
+    tq = time.perf_counter()
+    for u in users[:PER_QUERY_USERS]:
+        one = lkpy_tpu_torch.recommend(pipe, u, n=10)
+        if not same_ids_at_clear_gaps(one, recs.lookup(u)):
+            raise AssertionError(f"user {u}: per-query recommend {list(one.ids())} differs from the batch list {list(recs.lookup(u).ids())}")
+    log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s)")
+    return trained, served
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1300,7 +1527,7 @@ def main() -> int:
         register_route_info, solve_route, spd_solve_chunked, spd_solve_chunked_plain,
     )  # fmt: skip
 
-    missing = {"mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
+    missing = {"gather_rows", "mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
     if missing:
         raise AssertionError(f"kernel sources missing from the checkout: {sorted(missing)}")
     card = card_line()
@@ -1348,6 +1575,7 @@ def main() -> int:
     chunked["register_route"] = [register_route_info(k) for k in (32, 64, 96, 128)]
     log(f"spd_solve_chunked register route as compiled: {chunked['register_route']}")
     topk = topk_kernel_phase(dev)
+    gather_probe = gather_kernel_phase(dev)
 
     # bench.py's interactions, made once; each path continues the generator
     # from the state it had right after them, as bench.py does
@@ -1367,6 +1595,7 @@ def main() -> int:
     # the later phases draw on from the generator where the split left it, as bench.py does
     retrieval = retrieval_phase(dev, split["scorer"], split["rng"])
     explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
+    pipeline_training, pipeline_serving = pipeline_phase(dev, split)
 
     paths = {
         "serving": serving,
@@ -1375,8 +1604,14 @@ def main() -> int:
         "retrieval": retrieval,
         "explicit_training": explicit_training,
         "explicit_serving": explicit_serving,
+        "pipeline_training": pipeline_training,
+        "pipeline_serving": pipeline_serving,
     }
-    for path, kernel in [("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_serving", "spd_solve")]:
+    for path, kernel in [
+        ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_serving", "spd_solve"),
+        ("pipeline_training", "spd_solve_chunked"), ("pipeline_training", "gather_rows"), ("pipeline_serving", "spd_solve"),
+        ("pipeline_serving", "gather_rows"),
+    ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
     kernels = [
@@ -1406,6 +1641,19 @@ def main() -> int:
             launches=retrieval["mips_topk"],
             launches_by_path={p: c["mips_topk"] for p, c in paths.items()},
             **topk,
+        ),
+        dict(
+            name="gather_rows",
+            route="cuda",
+            source="lkpy_tpu_torch/csrc/gather_rows.cu",
+            replaces="benchmarks/probe_gather.py:113",
+            launches=pipeline_training["gather_rows"] + pipeline_serving["gather_rows"],
+            launches_by_path={p: c["gather_rows"] for p, c in paths.items()},
+            # the main row: the implicit epoch's largest chunk, the user half's (30024, 120) against the item table
+            **{k: v for k, v in split["gather_epoch"][0].items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            shape=split["gather_epoch"][0]["label"],
+            epoch_shapes=split["gather_epoch"],
+            probe_shapes=gather_probe,
         ),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s after the start of the checks")

@@ -26,6 +26,7 @@ __all__ = [
     "device_recommend_async",
     "invalidate_device_cache",
     "supports_device_batch",
+    "try_device_recommend",
 ]
 
 _dev_cache: dict = {}
@@ -91,6 +92,42 @@ def _extract_arrays(scorer) -> dict | None:
             out["offset"] = bias.global_bias
         return out
     return None
+
+
+def try_device_recommend(pipeline, users, n: int | None, *, exact=None) -> ItemListCollection | None:
+    """
+    Serve a *standard* top-N pipeline through :func:`device_recommend`, if
+    possible (JAX package: batch/device.py:155).
+
+    Conditions: the pipeline has 'scorer'/'ranker'/'history-lookup'/
+    'candidate-selector' nodes in the standard shape, the candidate
+    selector excludes only user history, and the scorer is embedding-family.
+    The call runs on the device where the scorer's item table lies.
+    Returns None when unsupported (the caller falls back to per-query
+    execution).
+    """
+    from lkpy_tpu_torch.models.basic import TopNRanker, TrainingItemsCandidateSelector, UserTrainingHistoryLookup
+
+    try:
+        scorer = pipeline.node("scorer").component
+        ranker = pipeline.node("ranker").component
+        lookup = pipeline.node("history-lookup").component
+        cand = pipeline.node("candidate-selector").component
+    except (KeyError, AttributeError):
+        return None
+    if not isinstance(ranker, TopNRanker) or not isinstance(lookup, UserTrainingHistoryLookup):
+        return None
+    if not isinstance(cand, TrainingItemsCandidateSelector) or cand.config.exclude == "none":
+        return None
+    if getattr(lookup, "interactions", None) is None or not supports_device_batch(scorer):
+        return None
+    if n is None or n < 0:
+        n = ranker.config.n
+    if n is None or n < 0:
+        return None
+    table = _extract_arrays(scorer)["i_embed"]
+    device = table.device if isinstance(table, torch.Tensor) else None
+    return device_recommend(scorer, users, n, lookup.interactions, exact=exact, device=device)
 
 
 class PendingRecommend:

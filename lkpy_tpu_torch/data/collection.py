@@ -9,7 +9,7 @@ IDs (e.g. ``user_id``) with lookup, projection and a long-frame export, and
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Sequence
+from typing import Any, Iterator, Mapping, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import pandas as pd
@@ -17,7 +17,14 @@ import pandas as pd
 from lkpy_tpu_torch.data.items import ItemList
 from lkpy_tpu_torch.data.keys import create_key_type
 
-__all__ = ["ItemListCollection", "ArrayTopNILC"]
+__all__ = ["ItemListCollection", "ItemListCollector", "ArrayTopNILC"]
+
+
+@runtime_checkable
+class ItemListCollector(Protocol):
+    """Anything item lists can be added to (reference: _collection/_base.py:594)."""
+
+    def add(self, items: ItemList, *fields: Any, **kwfields: Any) -> None: ...  # pragma: no cover
 
 
 class ItemListCollection:
@@ -35,7 +42,27 @@ class ItemListCollection:
         self._lists: list[ItemList | None] = []
         self._index: dict[tuple, int] = {}
 
-    def add(self, items: ItemList, *key: Any) -> None:
+    @classmethod
+    def empty(cls, key: Sequence[str] = ("user_id",)) -> "ItemListCollection":
+        return cls(key)
+
+    @classmethod
+    def from_dict(cls, data: Mapping[Any, ItemList], key: Sequence[str] | str | None = None) -> "ItemListCollection":
+        """Create from a mapping of keys to item lists (reference: _base.py:146)."""
+        if key is None:
+            key = ("user_id",)
+        if isinstance(key, str):
+            key = (key,)
+        ilc = cls(key)
+        for k, il in data.items():
+            if not isinstance(k, tuple):
+                k = (k,)
+            ilc.add(il, *k)
+        return ilc
+
+    def add(self, items: ItemList, *key: Any, **kwkey: Any) -> None:
+        if kwkey:
+            key = tuple(kwkey[f] for f in self._fields)
         if len(key) != len(self._fields):
             raise ValueError(f"expected {len(self._fields)} key fields, got {len(key)}")
         self._keys.append(tuple(key))
@@ -89,7 +116,7 @@ class ItemListCollection:
         """Long DataFrame with key columns."""
         frames = []
         for k, il in self.items():
-            df = il.to_df()
+            df = il.to_df(numbers=False)
             for f, v in reversed(list(zip(self._fields, k))):
                 df.insert(0, f, v)
             frames.append(df)
@@ -139,7 +166,7 @@ class ArrayTopNILC(ItemListCollection):
             self._lists[i] = il
         return il
 
-    def add(self, items: ItemList, *key: Any) -> None:
+    def add(self, items: ItemList, *key: Any, **kwkey: Any) -> None:
         raise TypeError("ArrayTopNILC is immutable")
 
     def total_items(self) -> int:

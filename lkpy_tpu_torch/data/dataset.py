@@ -1,10 +1,11 @@
 """
 Dataset: entities, relationships, and interaction matrices.
 
-Port of the parts of ``lkpy_tpu/data/dataset.py`` that serving needs
-(reference: src/lenskit/data/_dataset.py:63, _relationships.py:40,410):
-entity vocabularies, relationship tables, and the de-duplicated
-:class:`MatrixRelationshipSet` with its CSR, vocabularies and row access.
+Port of the parts of ``lkpy_tpu/data/dataset.py`` that serving and the
+pipeline need (reference: src/lenskit/data/_dataset.py:63,
+_relationships.py:40,410): entity vocabularies, relationship tables, and the
+de-duplicated :class:`MatrixRelationshipSet` with its CSR, vocabularies, row
+access and per-item statistics.
 """
 
 from __future__ import annotations
@@ -116,6 +117,32 @@ class MatrixRelationshipSet(RelationshipSet):
         return ItemList(item_nums=self._csr.colind[s:e], vocabulary=self.col_vocabulary, **fields)
 
 
+    def col_stats(self) -> pd.DataFrame:
+        return self._axis_stats(self._csr.transpose(), self.col_vocabulary)
+
+    @staticmethod
+    def _axis_stats(csr: CSR, vocab: Vocabulary) -> pd.DataFrame:
+        """Per-row counts and mean ratings, and first and last times where
+        the relationship has them (reference: _matrix.py ``col_stats``)."""
+        lens = csr.row_lengths()
+        data = {"count": lens}
+        if csr.values is not None:
+            sums = np.zeros(csr.nrows)
+            np.add.at(sums, np.repeat(np.arange(csr.nrows), lens), csr.values)
+            data["rating_count"] = lens
+            data["mean_rating"] = np.where(lens > 0, sums / np.maximum(lens, 1), np.nan)
+        ts = csr.fields.get("timestamp")
+        if ts is not None and csr.nnz:
+            rows = np.repeat(np.arange(csr.nrows), lens)
+            first = np.full(csr.nrows, np.inf)
+            last = np.full(csr.nrows, -np.inf)
+            np.minimum.at(first, rows, ts)
+            np.maximum.at(last, rows, ts)
+            data["first_time"] = np.where(lens > 0, first, np.nan)
+            data["last_time"] = np.where(lens > 0, last, np.nan)
+        return pd.DataFrame(data, index=pd.Index(vocab.ids, name=vocab.name))
+
+
 def _combine_repeats(rows, cols, attrs, combine):
     keys = rows.astype(np.int64) * (np.max(cols) + 1 if len(cols) else 1) + cols
     uniq, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
@@ -207,6 +234,9 @@ class Dataset:
         if key not in self._matrix_cache:
             self._matrix_cache[key] = self.relationships(key).matrix()
         return self._matrix_cache[key]
+
+    def item_stats(self) -> pd.DataFrame:
+        return self.interaction_matrix().col_stats()
 
     def user_row(self, user_id=None, *, user_num: int | None = None) -> ItemList | None:
         """A user's interaction history as an ItemList."""

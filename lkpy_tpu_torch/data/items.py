@@ -2,9 +2,10 @@
 ItemList: a list of items with attached data.
 
 Port of ``lkpy_tpu/data/items.py`` (reference: src/lenskit/data/_items.py:46)
-with the accessors the serving path and its results use: IDs and numbers
-under a vocabulary, scores, ranks and per-item fields.  Payloads are NumPy
-arrays on the host; ``format="torch"`` exports a tensor.
+with the accessors the serving path, the pipeline and its components use:
+IDs and numbers under a vocabulary, scores, ranks and per-item fields,
+membership, removal, selection and the top-N.  Payloads are NumPy arrays on
+the host; ``format="torch"`` exports a tensor.
 """
 
 from __future__ import annotations
@@ -110,6 +111,11 @@ class ItemList:
             if len(arr) != self._len:
                 raise ValueError(f"field {name!r} length {len(arr)} != item count {self._len}")
 
+    @classmethod
+    def from_vocabulary(cls, vocab: Vocabulary) -> "ItemList":
+        """All items in a vocabulary, in number order (reference: _items.py:518)."""
+        return cls(item_nums=np.arange(len(vocab), dtype=np.int32), vocabulary=vocab)
+
     @property
     def vocabulary(self) -> Vocabulary | None:
         return self._vocab
@@ -179,10 +185,73 @@ class ItemList:
             return torch.from_numpy(np.ascontiguousarray(arr))
         raise ValueError(f"unknown format {format!r}")
 
-    def to_df(self) -> pd.DataFrame:
+    # ---- set / ranking operations ---------------------------------------
+    def isin(self, other: "ItemList") -> np.ndarray:
+        """Boolean membership mask of this list's items in ``other`` (reference: _items.py:756)."""
+        if self._vocab is not None and other._vocab is not None and self._vocab == other._vocab:
+            return np.isin(self.numbers(), other.numbers())
+        return np.isin(self.ids(), other.ids())
+
+    def top_n(self, n: int | None = None, *, scores=None) -> "ItemList":
+        """
+        The top-N items by score, as an ordered (ranked) list
+        (reference: _items.py:942).  NaN scores sort last and are dropped.
+        """
+        if scores is None:
+            svals = self.scores()
+        elif isinstance(scores, str):
+            svals = self.field(scores)
+        else:
+            svals = _np_field(scores).astype(np.float32)
+        if svals is None:
+            raise ValueError("top_n requires scores")
+        valid = ~np.isnan(svals)
+        k = int(np.sum(valid))
+        if n is not None:
+            k = min(k, n)
+        # argsort descending on negated scores; stable for ties
+        order = np.argsort(-np.where(valid, svals, -np.inf), kind="stable")[:k]
+        out = self._take(order)
+        return ItemList(out, ordered=True, rank=np.arange(1, k + 1, dtype=np.int32), scores=svals[order])
+
+    def remove(self, items: "ItemList") -> "ItemList":
+        """A copy of this list with the given items removed (reference: _items.py:1072)."""
+        mask = ~self.isin(items)
+        return self._take(np.nonzero(mask)[0])
+
+    def _take(self, idx: np.ndarray, *, ordered: bool | None = None) -> "ItemList":
+        fields = {n: v[idx] for n, v in self._fields.items() if n != "rank"}
+        scores = fields.pop("score", None)
+        return ItemList(
+            item_ids=self._ids[idx] if self._ids is not None else None,
+            item_nums=self._nums[idx] if self._nums is not None else None,
+            vocabulary=self._vocab,
+            scores=scores,
+            ordered=self.ordered if ordered is None else ordered,
+            **fields,
+        )
+
+    def __getitem__(self, sel) -> "ItemList":
+        if isinstance(sel, (int, np.integer)):
+            sel = np.asarray([sel])
+        elif isinstance(sel, slice):
+            sel = np.arange(self._len)[sel]
+        else:
+            sel = np.asarray(sel)
+            if sel.dtype == bool:
+                sel = np.nonzero(sel)[0]
+        return self._take(sel)
+
+    # ---- export ----------------------------------------------------------
+    def to_df(self, *, ids: bool = True, numbers: bool = True) -> pd.DataFrame:
         cols = {}
-        if self._ids is not None or self._vocab is not None:
+        if ids and (self._ids is not None or self._vocab is not None):
             cols["item_id"] = self.ids()
+        if numbers and (self._nums is not None or self._vocab is not None):
+            try:
+                cols["item_num"] = self.numbers()
+            except (RuntimeError, KeyError):
+                pass
         for name in self._fields:
             cols[name] = self.field(name)
         if self.ordered and "rank" not in cols:

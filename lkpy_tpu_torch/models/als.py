@@ -9,7 +9,8 @@ fold-in of a user's history (``user_embeddings`` ``True``/``False``/
 ``"prefer"``), and ``_fold_explicit_kernel``/``_fold_implicit_kernel``, the
 fold-ins the batch serving engine runs on each block of users.
 
-A scorer is an ``nn.Module`` whose factor tables are buffers, so
+A scorer is a pipeline component (``topn_pipeline(ImplicitMFScorer())``)
+and an ``nn.Module`` whose factor tables are buffers, so
 ``scorer.to(device)`` moves them.  ``scorer.train(data, options)`` trains it
 on the card (unless ``TrainingOptions(device="cpu")``) and leaves its tables
 there; each scorer's ``from_numpy`` builds one from parameters trained
@@ -26,12 +27,13 @@ import torch
 from pydantic import AliasChoices, BaseModel, Field
 from torch import nn
 
-from lkpy_tpu_torch._config import validated_config
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.config import EmbeddingSizeMixin
 from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
 from lkpy_tpu_torch.models.bias import BiasModel, entity_damping
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.sparse import bucket_rows
+from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.training import ModelTrainer, TrainingOptions, UsesTrainer
 
 __all__ = [
@@ -104,7 +106,7 @@ def _fold_explicit_kernel(cols, vals, mask, i_emb, i_bias, gbias: float, damping
     return u, ub
 
 
-class ALSConfig(BaseModel):
+class ALSConfig(EmbeddingSizeMixin, BaseModel):
     """ALS configuration (reference: als/_common.py:36)."""
 
     embedding_size: int = Field(default=64, validation_alias=AliasChoices("embedding_size", "features"))
@@ -139,9 +141,11 @@ def _rows(table: torch.Tensor, nums) -> np.ndarray:
     return table[idx].cpu().numpy()
 
 
-class ALSBase(UsesTrainer, nn.Module):
-    """Base ALS scorer (reference: als/_common.py:113), an ``nn.Module``
-    whose ``user_embeddings`` and ``item_embeddings`` are buffers."""
+class ALSBase(UsesTrainer, Component, nn.Module):
+    """Base ALS scorer (reference: als/_common.py:113): a pipeline
+    :class:`~lkpy_tpu_torch.pipeline.Component` and an ``nn.Module`` whose
+    ``user_embeddings`` and ``item_embeddings`` are buffers.  Its
+    ``__call__`` is the component's (one query), not ``nn.Module``'s."""
 
     config: ALSConfig
     users: Vocabulary | None
@@ -329,8 +333,8 @@ class BiasedMFScorer(ALSBase):
     bias: BiasModel
 
     def __init__(self, config: BiasedMFConfig | dict | None = None, **kwargs):
-        super().__init__()
-        self.config = validated_config(BiasedMFConfig, config, kwargs)
+        nn.Module.__init__(self)
+        Component.__init__(self, config, **kwargs)
         self.users = None
         self.items = None
         self.register_buffer("user_embeddings", None)
@@ -442,8 +446,8 @@ class ImplicitMFScorer(ALSBase):
     config: ImplicitMFConfig
 
     def __init__(self, config: ImplicitMFConfig | dict | None = None, **kwargs):
-        super().__init__()
-        self.config = validated_config(ImplicitMFConfig, config, kwargs)
+        nn.Module.__init__(self)
+        Component.__init__(self, config, **kwargs)
         self.users = None
         self.items = None
         self.register_buffer("user_embeddings", None)

@@ -21,11 +21,11 @@ import numpy as np
 import torch
 from pydantic import BaseModel
 
-from lkpy_tpu_torch._config import validated_config
 from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.data import CSR, Dataset, ItemList, Vocabulary
 from lkpy_tpu_torch.data.query import QueryInput, RecQuery
 from lkpy_tpu_torch.ops.segment import segment_mean
+from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.training import TrainingOptions
 
 __all__ = ["BiasModel", "BiasConfig", "BiasScorer", "entity_damping"]
@@ -177,18 +177,19 @@ class BiasConfig(BaseModel):
         return entity_damping(self.damping, entity)
 
 
-class BiasScorer:
+class BiasScorer(Component):
     """Bias-based rating prediction (reference: bias.py:299)."""
 
     config: BiasConfig
     model: BiasModel
 
-    def __init__(self, config: BiasConfig | dict | None = None, **kwargs):
-        self.config = validated_config(BiasConfig, config, kwargs)
-
     @property
     def is_trained(self) -> bool:
         return hasattr(self, "model")
+
+    @is_trained.setter
+    def is_trained(self, value: bool):
+        pass
 
     def train(self, data: Dataset, options: TrainingOptions | None = None):
         options = options or TrainingOptions()

@@ -8,7 +8,9 @@ batches (:func:`lkpy_tpu_torch.ops.sparse.bucket_rows`) and cut into
 fixed-shape chunks (:func:`chunk_buckets`), which stay on the device across
 epochs.  Each chunk of a half-epoch
 
-1. gathers the opposite-side factors ``G = right[cols]``  (B, P, k),
+1. gathers the opposite-side factors ``G = right[cols]``  (B, P, k) with
+   the hand-written row-gather kernel (:mod:`lkpy_tpu_torch.ops.gather_rows`,
+   the port of the TPU gather probe's kernel; ``index_select`` on the CPU),
 2. forms the per-row normal equations with batched matrix products in
    float32 (``torch.bmm``, as JAX computes them outside any kernel),
 3. solves them with the hand-written training kernel
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.ops.gather_rows import gather_rows
 from lkpy_tpu_torch.ops.sparse import PaddedRowMatrix
 from lkpy_tpu_torch.ops.spd_solve import spd_solve
 from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
@@ -71,9 +74,10 @@ def batched_spd_solve(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _gather(right: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """``right[cols]`` for (B, P) int32 or int64 column numbers: (B, P, k)."""
-    B, P = cols.shape
-    return right.index_select(0, cols.reshape(-1)).view(B, P, right.shape[1])
+    """``right[cols]`` for (B, P) int32 or int64 column numbers: (B, P, k),
+    through the row-gather kernel on the card (its plain version on the
+    CPU)."""
+    return gather_rows(right, cols)
 
 
 def _implicit_normal_eqs(cols, conf, mask, right, otor):

@@ -8,11 +8,12 @@ Port of ``lkpy_tpu/training.py`` (reference: src/lenskit/training.py:40,232,
 ``TrainingOptions.device`` names the torch device to train on; ``None``
 means the card (:func:`lkpy_tpu_torch.resolve_device`).  Multi-device
 training (the JAX package's ``mesh``) is not part of the port yet.
+``UsesTrainer`` reports its epochs through
+:func:`lkpy_tpu_torch.logging.item_progress`.
 """
 
 from __future__ import annotations
 
-import logging
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
 from typing import Any, Protocol, runtime_checkable
@@ -21,9 +22,10 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.logging import get_logger, item_progress
 from lkpy_tpu_torch.random import RNGInput, random_generator
 
-__all__ = ["TrainingOptions", "Trainable", "UsesTrainer", "ModelTrainer"]
+__all__ = ["TrainingOptions", "Trainable", "UsesTrainer", "ModelTrainer", "IterativeTraining"]
 
 
 @dataclass
@@ -117,6 +119,8 @@ class UsesTrainer:
     Subclasses implement ``create_trainer`` and have a ``config.epochs``.
     """
 
+    trainer_class: type[ModelTrainer] | None = None
+
     @property
     def expected_training_epochs(self) -> int:
         cfg = getattr(self, "config", None)
@@ -130,18 +134,19 @@ class UsesTrainer:
         if not options.retrain and getattr(self, "is_trained", False):
             return
         trainer = self.create_trainer(data, options)
-        log = logging.getLogger(type(self).__module__)
+        log = get_logger(type(self).__module__)
         n = self.expected_training_epochs
-        for epoch in range(n):
-            metric = trainer.train_epoch()
-            # the metric may be a device scalar: do NOT float() it here, that
-            # would wait for the device every epoch and stop the host from
-            # queueing the next epoch's work
-            log.debug(
-                "epoch %d/%d finished (metric %s)",
-                epoch + 1,
-                n,
-                metric if isinstance(metric, (int, float)) else "on device",
-            )
+        with item_progress(f"train {type(self).__name__}", n) as pb:
+            for epoch in range(n):
+                metric = trainer.train_epoch()
+                # the metric may be a device scalar: do NOT float() it here, that
+                # would wait for the device every epoch and stop the host from
+                # queueing the next epoch's work
+                log.debug("epoch finished", epoch=epoch + 1, metric=metric if isinstance(metric, (int, float)) else None)
+                pb.update()
         trainer.finalize()
         self.is_trained = True
+
+
+# the name some reference documentation uses
+IterativeTraining = UsesTrainer

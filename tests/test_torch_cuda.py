@@ -17,6 +17,7 @@ from lkpy_tpu_torch.data import from_interactions_df
 from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.als import implicit_otor
+from lkpy_tpu_torch.ops.gather_rows import gather_rows, vector_width
 from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _launch as launch_topk
 from lkpy_tpu_torch.ops.mips_topk import _merge_lists, _merge_lists_plain, choose_splits, mips_topk, mips_topk_plain, range_items
 from lkpy_tpu_torch.ops.sparse import bucket_rows
@@ -453,3 +454,66 @@ def test_explicit_family_on_card_matches_cpu(cuda):
     for (key, il_cpu), (key2, il_gpu) in zip(out["cpu"][1].items(), out["cuda"][1].items()):
         assert key == key2 and len(il_cpu) == len(il_gpu) == 10
         np.testing.assert_allclose(il_gpu.scores(), il_cpu.scores(), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("K", [1, 3, 50, 63, 64, 65, 128, 256])
+@pytest.mark.parametrize("M", [0, 1, 37, 65_536])
+def test_gather_rows_kernel_equals_index_select(cuda, K, M):
+    rng = np.random.default_rng(K * 7 + M)
+    n = 5_000
+    table = torch.from_numpy(rng.standard_normal((n, K), dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, M).astype(np.int32)).to(cuda)
+    if M:
+        idx[-1] = n - 1  # the last row
+        idx[0] = 0  # the padding slots' column
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + (M > 0)
+    assert got.shape == (M, K) and torch.equal(got, table.index_select(0, idx.long()))
+
+
+@pytest.mark.parametrize("K", [50, 64, 128])
+def test_gather_rows_views_and_int64(cuda, K):
+    rng = np.random.default_rng(K)
+    base = torch.from_numpy(rng.standard_normal(400 * (K + 3) + 1, dtype=np.float32)).to(cuda)
+    table = base[1 : 1 + 400 * K].view(400, K)  # a view 4 bytes past an aligned start
+    wide = base[: 400 * (K + 3)].view(400, K + 3)[:, 2 : 2 + K]  # rows K + 3 apart, at an offset
+    idx = torch.from_numpy(rng.integers(0, 400, (6, 37))).to(cuda)  # int64, 2-D
+    for t in (table, wide):
+        got = gather_rows(t, idx)
+        torch.cuda.synchronize()
+        assert got.shape == (6, 37, K) and torch.equal(got, t[idx])
+    assert vector_width(table, torch.empty((1, K), device=cuda)) == 1  # 4 bytes off: scalar loads
+    assert torch.equal(gather_rows(table, idx.int()), table[idx])
+
+
+def test_gather_rows_out_of_range_is_a_device_assertion(cuda):
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from lkpy_tpu_torch.ops.gather_rows import gather_rows\n"
+        "t = torch.zeros((100, 64), device='cuda')\n"
+        "i = torch.tensor([3, 100], dtype=torch.int32, device='cuda')\n"
+        "try:\n"
+        "    gather_rows(t, i)\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', 'assert' in str(e).lower())\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300
+    )
+    assert "raised True" in out.stdout, (out.stdout, out.stderr)
+
+
+def test_als_gather_runs_the_kernel(cuda):
+    rng = np.random.default_rng(3)
+    right = torch.from_numpy(rng.standard_normal((90, 50), dtype=np.float32)).to(cuda)
+    cols = torch.from_numpy(rng.integers(0, 90, (16, 7)).astype(np.int32)).to(cuda)
+    before = gather_rows.launches
+    G = als_ops._gather(right, cols)
+    assert gather_rows.launches == before + 1 and torch.equal(G, right[cols.long()])

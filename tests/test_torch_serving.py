@@ -142,6 +142,17 @@ def test_use_ratings_fold_in_matches_jax():
 def test_port_loads_no_jax():
     code = """
 import sys
+
+
+class Blocked:
+    # jax, jaxlib and lkpy_tpu cannot be imported at all in this process
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
 import numpy as np, pandas as pd
 from lkpy_tpu_torch.batch.device import device_recommend
 from lkpy_tpu_torch.data import from_interactions_df
@@ -182,6 +193,18 @@ assert np.isfinite(mf(rated.users.ids[0], ItemList(item_ids=rated.items.ids[:4])
 bs = BiasScorer(damping=5.0)
 bs.train(rated, TrainingOptions(device="cpu"))
 assert np.isfinite(bs(rated.users.ids[0], ItemList(item_ids=rated.items.ids[:4])).scores()).all()
+# the user's path: pipeline, batch and per-query recommend
+import lkpy_tpu_torch
+from lkpy_tpu_torch.batch import recommend
+pipe = lkpy_tpu_torch.topn_pipeline(ImplicitMFScorer(features=8, epochs=2), n=5)
+pipe.train(ds, TrainingOptions(rng=1, device="cpu"))
+assert recommend(pipe, ds.users.ids[:9], n=5).total_items() > 0
+assert len(lkpy_tpu_torch.recommend(pipe, ds.users.ids[0], n=5)) == 5
+# every module of the package, and the chip smoke script
+import importlib, pkgutil
+for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu"))
 print(",".join(bad))
 """
