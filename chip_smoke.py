@@ -47,7 +47,15 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    - the user's path: ``topn_pipeline(ImplicitMFScorer(...), n=10)`` →
      ``Pipeline.train`` → ``lkpy_tpu_torch.batch.recommend`` of the 10,000
      test users through the device route (NDCG@10 against the direct
-     path's), and per-query ``recommend`` against the batch lists.
+     path's), and per-query ``recommend`` against the batch lists;
+   - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
+     on all the interactions, 5 % of the users (split, ``Pipeline.train``,
+     the per-query runner, which folds each user in and scores on the card,
+     ``RunAnalysis`` against the script's own means),
+     the same pipeline through the device route, then of
+     ``BiasedMFScorer`` with ``predicts_ratings=True`` on bench.py's
+     synthetic ratings, 2 % of the users (RMSE against the bias model's on
+     the same split).
 4. Prints one JSON line describing each kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -102,13 +110,14 @@ EXPLICIT_FEATURES = 50
 LARGEST_CHUNK_ROWS = 30024
 
 #: (B, k) shapes of the fold-in solve's kernel phase: the serving block and
-#: batch at k=64, the explicit family's serving block at k=50, then widths on
+#: batch at k=64, the explicit family's serving block at k=50, one query's
+#: fold-in in the per-query runner at both widths, then widths on
 #: both sides of every boundary of the register route's templates (32, 64,
 #: 96, 128) and of the route boundary (128 | 129), odd widths, and batches
 #: that are no multiple of the systems a block
 SPD_SHAPES = [
-    (1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1000, 50), (7, 8), (1000, 32), (1001, 33), (1023, 63),
-    (1000, 65), (500, 96), (501, 97), (333, 128), (333, 129), (64, 256),
+    (1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1, FEATURES), (1, EXPLICIT_FEATURES), (1000, 50), (7, 8),
+    (1000, 32), (1001, 33), (1023, 63), (1000, 65), (500, 96), (501, 97), (333, 128), (333, 129), (64, 256),
 ]  # fmt: skip
 SPD_MAIN_SHAPE = (SERVE_CHUNK, FEATURES)
 SPD_EXPLICIT_SHAPE = (SERVE_CHUNK, EXPLICIT_FEATURES)
@@ -167,12 +176,28 @@ GATHER_PROBE_ROWS = [1 << 16, 1 << 22]
 #: (K, M) edge cases of the row gather: widths that take 4-, 8- and 16-byte
 #: vectors, rows wider than a warp's 32 vectors, no rows
 GATHER_EDGE_CASES = [(1, 37), (3, 37), (50, 1), (63, 37), (64, 1), (65, 1000), (128, 37), (256, 37), (64, 0)]
+#: (M, K) of one query in the per-query runner: a history of the mean length
+#: and the candidates (the items less the history) against the item table
+PER_QUERY_GATHERS = [(103, FEATURES), (N_ITEMS - 103, FEATURES), (103, EXPLICIT_FEATURES), (N_ITEMS - 103, EXPLICIT_FEATURES)]
 #: users of the per-query check of the pipeline phase
 PER_QUERY_USERS = 20
 #: how far the pipeline's NDCG@10 may lie from the direct path's, each served
 #: the same way (fold-in, and from the user table): the two train from
 #: different seeds, since a pipeline derives its scorer's from the node name
 NDCG_PIPELINE_TOL = 0.005
+
+#: quick_measure_model's user sample in the evaluation phase: the reference's
+#: 0.2 cut to 0.05 (6,900 users) for implicit feedback and 0.02 (2,760) for
+#: ratings, since its runner serves one query at a time on the host
+EVAL_USER_FRAC = 0.05
+EVAL_EXPLICIT_USER_FRAC = 0.02
+EVAL_N = 20
+#: users on which the runner's lists must equal the device route's, at least
+EVAL_MIN_COMPARED = 200
+#: how far the device route's NDCG@20 may lie from the runner's, and
+#: RunAnalysis's means from the script's own computation
+EVAL_NDCG_TOL = 0.005
+EVAL_METRIC_TOL = 1e-6
 
 #: hold-out RMSE bounds of the explicit model on bench.py's synthetic
 #: ratings: the JAX package's recorded run scored 0.5782 against a bias-only
@@ -496,6 +521,10 @@ def gather_kernel_phase(dev) -> list:
     idx64 = torch.from_numpy(edge.integers(0, 400, (64, 37))).to(dev)
     gather_case("edge view 4 bytes past an aligned start, int64 rows", base[1 : 1 + 400 * 64].view(400, 64), idx64, reps=5)
     gather_case("edge rows 67 floats apart at an offset, int64 rows", base[: 400 * 67].view(400, 67)[:, 3:53], idx64, reps=5)
+    for M, K in PER_QUERY_GATHERS:
+        table = torch.from_numpy(edge.standard_normal((N_ITEMS, K), dtype=np.float32)).to(dev)
+        idx = torch.from_numpy(edge.permutation(N_ITEMS)[:M].astype(np.int32)).to(dev)
+        gather_case(f"per-query ({N_ITEMS}, {K}) x {M}", table, idx, reps=20)
     return rows
 
 
@@ -616,8 +645,9 @@ def profile_device(fn, wall_ms: float, label: str, top: int = 10, mark: str | No
     return total_ms, idle, share
 
 
-def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
-    """The serving path: ``device_recommend`` with fold-in on random factors."""
+def slice_phase(dev, users, items, rng: np.random.Generator):
+    """The serving path: ``device_recommend`` with fold-in on random factors.
+    Returns its launches and the dataset of all interactions."""
     import pandas as pd
 
     from lkpy_tpu_torch.batch.device import device_recommend
@@ -693,7 +723,7 @@ def slice_phase(dev, users, items, rng: np.random.Generator) -> dict:
         "one serving call",
         mark="spd_solve",
     )
-    return launches
+    return launches, ds
 
 
 def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, dict, dict]:
@@ -1514,6 +1544,221 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
     return trained, served
 
 
+def chunks_per_epoch(ds) -> int:
+    """Chunks of one ALS epoch over ``ds`` (both halves), bucketed and
+    chunked as the trainers do it, on the host."""
+    from lkpy_tpu_torch.models.als import LADDER_RATIO
+    from lkpy_tpu_torch.ops.als import chunk_buckets
+    from lkpy_tpu_torch.ops.sparse import bucket_rows
+
+    csr = ds.interaction_matrix().csr(None)
+    return sum(c.rows.shape[0] for m in (csr, csr.transpose()) for c in chunk_buckets(bucket_rows(m, ratio=LADDER_RATIO), device="cpu"))
+
+
+def instrumented_quick(*args, **kwargs):
+    """``quick_measure_model(*args, **kwargs)`` with its split,
+    ``Pipeline.train`` and runner timed on the host clock (each ending in a
+    synchronize) and the kernels each step launched; returns the results,
+    the trained pipeline, the times and the launches by step."""
+    from lkpy_tpu_torch.metrics import quick
+
+    saved = quick.sample_users, quick.topn_pipeline, quick.BatchPipelineRunner
+    times, steps, pipes = {}, {}, []
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            before = read_counts()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t
+            steps[name] = {k: v - before[k] for k, v in read_counts().items()}
+            return out
+
+        return call
+
+    def pipeline(*a, **kw):
+        pipe = saved[1](*a, **kw)
+        pipe.train = timed("train", pipe.train)
+        pipes.append(pipe)
+        return pipe
+
+    class Runner(saved[2]):
+        def run(self, *a, **kw):
+            return timed("run", super().run)(*a, **kw)
+
+    quick.sample_users, quick.topn_pipeline, quick.BatchPipelineRunner = timed("split", saved[0]), pipeline, Runner
+    try:
+        t = time.perf_counter()
+        res = quick.quick_measure_model(*args, **kwargs)
+        times["total"] = time.perf_counter() - t
+    finally:
+        quick.sample_users, quick.topn_pipeline, quick.BatchPipelineRunner = saved
+    return res, pipes[0], times, steps
+
+
+def check_quick_launches(label: str, steps: dict, res, scorer, predicts: bool) -> None:
+    """Under ``quick_measure_model``, ``Pipeline.train`` launches B1 and P
+    once a training chunk and no B2; the per-query runner launches no B1,
+    and for every scorer call P and B2 to fold the user's training history
+    in and P for the rows of the call's known items.  Each test user's
+    query is one recommend call (the unseen training items) and, with
+    ``predicts``, one predict call (the user's test items)."""
+    per_chunk = chunks_per_epoch(res.split.train) * EPOCHS
+    test = res.split.test
+    calls = len(test) * (2 if predicts else 1)
+    unknown = sum(not (scorer.items.numbers(t.ids(), missing="negative") >= 0).any() for _, t in test.items()) if predicts else 0
+    want = {
+        "train": {"spd_solve": 0, "spd_solve_chunked": per_chunk, "mips_topk": 0, "gather_rows": per_chunk},
+        "run": {"spd_solve": calls, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": 2 * calls - unknown},
+    }
+    log(f"{label}: launches by step {steps}; {per_chunk} training chunks, {calls} scorer calls ({unknown} with no known item)")
+    for step, counts in want.items():
+        if steps[step] != counts:
+            raise AssertionError(f"{label}: {step} must launch {counts}, launched {steps[step]}")
+
+
+def own_ranking_means(recs, test, n: int) -> tuple[float, float]:
+    """Mean NDCG@n and Recall@n of ``recs`` against ``test``, as
+    ``metrics/ranking.py`` defines them (binary gain, weight 1/max(log2 rank,
+    1), ideal over min(|test|, n) ranks; hits over |test|), computed here."""
+    w = 1.0 / np.maximum(np.log2(np.arange(1, n + 1)), 1.0)
+    ndcg, recall = [], []
+    for key, il in recs.items():
+        t = test.lookup(key.user_id)
+        good = np.isin(np.asarray(il.ids())[:n], t.ids())
+        ndcg.append(float(w[: len(good)][good].sum()) / float(w[: min(len(t), n)].sum()))
+        recall.append(float(good.sum()) / len(t))
+    return float(np.mean(ndcg)), float(np.mean(recall))
+
+
+def own_rmse(preds, test) -> float:
+    """Mean over users of each user's RMSE of the predicted test ratings
+    (a user without a finite prediction is skipped), computed here."""
+    vals = []
+    for key, t in test.items():
+        p = preds.lookup(key.user_id)
+        if p is None:
+            continue
+        s = dict(zip(p.ids().tolist(), p.scores().astype(np.float64)))
+        pairs = [(s[i], r) for i, r in zip(t.ids().tolist(), t.field("rating").astype(np.float64)) if np.isfinite(s.get(i, np.nan))]
+        if pairs:
+            vals.append(float(np.sqrt(np.mean([(a - b) ** 2 for a, b in pairs]))))
+    return float(np.mean(vals))
+
+
+def log_quick(label: str, res, times: dict) -> None:
+    n = len(res.split.test)
+    log(
+        f"{label}: quick_measure_model {times['total']:.3f}s: split {times['split']:.3f}s, train {times['train']:.3f}s, "
+        f"run {times['run']:.3f}s ({n} queries, {times['run'] * 1e3 / n:.3f} ms a query); "
+        f"{res.split.train.interaction_count} training and {res.split.test_size} test interactions"
+    )
+    log(f"{label}: global_metrics() " + json.dumps({k: float(v) for k, v in res.global_metrics().items()}))
+
+
+def evaluation_phase(dev, ds, rng: np.random.Generator):
+    """Offline evaluation: ``quick_measure_model`` of implicit ALS on all of
+    bench.py's interactions (split, ``Pipeline.train`` on the card, the
+    per-query runner with each query's fold-in and scores on the card,
+    ``RunAnalysis``), its metrics against the script's own,
+    the same trained pipeline served through the device route; then of
+    biased MF with ``predicts_ratings=True`` on bench.py's synthetic ratings
+    of the same interactions, its RMSE against the bias model's on the same
+    split.  Returns the launches of the implicit call, of the device route's
+    call and of the explicit call."""
+    import pandas as pd
+
+    from lkpy_tpu_torch.batch import device as batch_device
+    from lkpy_tpu_torch.batch import recommend
+    from lkpy_tpu_torch.data import ItemList, ItemListCollection, from_interactions_df
+    from lkpy_tpu_torch.metrics import NDCG, RunAnalysis
+    from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
+    from lkpy_tpu_torch.models.bias import BiasScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, weight=40.0, regularization=0.1)
+    zero_counts()
+    res, pipe, times, steps = instrumented_quick(scorer, ds, n_recs=EVAL_N, user_frac=EVAL_USER_FRAC, rng=42)
+    trained = read_counts()
+    log_quick("evaluation", res, times)
+    check_quick_launches("evaluation", steps, res, scorer, predicts=False)
+    for name in ("user_embeddings", "item_embeddings", "_OtOr"):
+        t = getattr(scorer, name)
+        if t.device.type != dev.type or not torch.isfinite(t).all():
+            raise AssertionError(f"the evaluated scorer's {name} must be finite and on {dev} ({t.device})")
+    gm = res.global_metrics()
+    ndcg, rec = own_ranking_means(res.recommendations, res.split.test, EVAL_N)
+    log(f"evaluation: NDCG@{EVAL_N} {ndcg:.10f} and Recall@{EVAL_N} {rec:.10f} computed here, RunAnalysis {gm[f'NDCG@{EVAL_N}']:.10f} and {gm[f'Recall@{EVAL_N}']:.10f}")
+    if max(abs(ndcg - gm[f"NDCG@{EVAL_N}"]), abs(rec - gm[f"Recall@{EVAL_N}"])) > EVAL_METRIC_TOL:
+        raise AssertionError(f"RunAnalysis's means differ from the script's own: {gm.to_dict()} against {ndcg}, {rec}")
+
+    # the same trained pipeline through the device route: B2 and the gather once a block
+    users = np.array([k.user_id for k in res.split.test.keys()])
+    taken = []
+    route = batch_device.try_device_recommend
+
+    def recording(*a, **kw):
+        out = route(*a, **kw)
+        taken.append(out)
+        return out
+
+    batch_device.try_device_recommend = recording
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        fast = recommend(pipe, users, n=EVAL_N)
+        serve_s = time.perf_counter() - tw
+        served = read_counts()
+    finally:
+        batch_device.try_device_recommend = route
+    block = inspect.signature(batch_device.device_recommend_async).parameters["chunk"].default
+    blocks = -(-len(users) // block)
+    log(f"evaluation: device route of the {len(users)} evaluated users, {serve_s:.3f}s; launches {served}; {blocks} blocks")
+    if len(taken) != 1 or taken[0] is None or taken[0] is not fast:
+        raise AssertionError("recommend(pipe, users, n=20) must take the device route (try_device_recommend)")
+    if served["spd_solve"] != blocks or served["gather_rows"] != blocks or served["spd_solve_chunked"]:
+        raise AssertionError(f"the device route must launch B2 and the gather once a block ({blocks}): {served}")
+    differ = [u for u in users if not same_ids_at_clear_gaps(res.recommendations.lookup(u), fast.lookup(u))]
+    nd_fast = float(RunAnalysis(NDCG(EVAL_N)).measure(fast, res.split.test).global_metrics()[f"NDCG@{EVAL_N}"])
+    log(
+        f"evaluation: runner lists equal to the device route's at clear gaps for {len(users) - len(differ)} of {len(users)} users; "
+        f"NDCG@{EVAL_N} {gm[f'NDCG@{EVAL_N}']:.6f} (runner) and {nd_fast:.6f} (device route)"
+    )
+    if differ or len(users) < EVAL_MIN_COMPARED:
+        raise AssertionError(f"the runner's lists differ from the device route's for users {differ[:10]} ({len(users)} compared)")
+    if abs(nd_fast - gm[f"NDCG@{EVAL_N}"]) > EVAL_NDCG_TOL:
+        raise AssertionError(f"NDCG@{EVAL_N} {gm[f'NDCG@{EVAL_N}']} (runner) and {nd_fast} (device route) differ by more than {EVAL_NDCG_TOL}")
+
+    # explicit: predicts_ratings=True runs the predict invocation and RMSE/MAE
+    t0 = time.perf_counter()
+    tbl = ds.interaction_table(ids=True)
+    uid, iid = tbl["user_id"].to_numpy(), tbl["item_id"].to_numpy()
+    ratings = explicit_ratings(rng, N_USERS, N_ITEMS)(uid, iid)
+    rated = from_interactions_df(pd.DataFrame({"user_id": uid, "item_id": iid, "rating": ratings}))
+    log(f"evaluation: {len(ratings)} synthetic ratings ({time.perf_counter() - t0:.1f}s to build)")
+    mf = BiasedMFScorer(features=EXPLICIT_FEATURES, epochs=EPOCHS, regularization=0.1, damping=5.0)
+    zero_counts()
+    eres, _, etimes, esteps = instrumented_quick(mf, rated, predicts_ratings=True, n_recs=EVAL_N, user_frac=EVAL_EXPLICIT_USER_FRAC, rng=42)
+    explicit = read_counts()
+    log_quick("explicit evaluation", eres, etimes)
+    check_quick_launches("explicit evaluation", esteps, eres, mf, predicts=True)
+    rmse = float(eres.global_metrics()["RMSE"])
+    own = own_rmse(eres.predictions, eres.split.test)
+    bias = BiasScorer(damping=5.0)
+    bias.train(eres.split.train, TrainingOptions(device=dev))
+    base = {k.user_id: bias(k.user_id, ItemList(item_ids=t.ids())) for k, t in eres.split.test.items()}
+    rmse_bias = own_rmse(ItemListCollection.from_dict(base, "user_id"), eres.split.test)
+    log(f"explicit evaluation: RMSE {rmse:.10f} (RunAnalysis), {own:.10f} computed here; the bias model's on the same split {rmse_bias:.10f}")
+    if abs(rmse - own) > EVAL_METRIC_TOL:
+        raise AssertionError(f"RunAnalysis's RMSE {rmse} differs from the script's own {own}")
+    if not (rmse <= RMSE_MAX and rmse < rmse_bias):
+        raise AssertionError(f"explicit evaluation RMSE {rmse} must be <= {RMSE_MAX} and below the bias model's {rmse_bias}")
+    return trained, served, explicit
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1590,12 +1835,13 @@ def main() -> int:
         g.bit_generator.state = state
         return g
 
-    serving = slice_phase(dev, users, items, continued())
+    serving, full = slice_phase(dev, users, items, continued())
     training, served, split = training_phase(dev, users, items, continued())
     # the later phases draw on from the generator where the split left it, as bench.py does
     retrieval = retrieval_phase(dev, split["scorer"], split["rng"])
     explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
     pipeline_training, pipeline_serving = pipeline_phase(dev, split)
+    evaluation_training, evaluation_serving, explicit_evaluation = evaluation_phase(dev, full, split["rng"])
 
     paths = {
         "serving": serving,
@@ -1606,11 +1852,17 @@ def main() -> int:
         "explicit_serving": explicit_serving,
         "pipeline_training": pipeline_training,
         "pipeline_serving": pipeline_serving,
+        "evaluation_training": evaluation_training,
+        "evaluation_serving": evaluation_serving,
+        "explicit_evaluation": explicit_evaluation,
     }
     for path, kernel in [
         ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_serving", "spd_solve"),
         ("pipeline_training", "spd_solve_chunked"), ("pipeline_training", "gather_rows"), ("pipeline_serving", "spd_solve"),
-        ("pipeline_serving", "gather_rows"),
+        ("pipeline_serving", "gather_rows"), ("evaluation_training", "spd_solve_chunked"),
+        ("evaluation_training", "gather_rows"), ("evaluation_training", "spd_solve"), ("evaluation_serving", "spd_solve"),
+        ("evaluation_serving", "gather_rows"), ("explicit_evaluation", "spd_solve_chunked"),
+        ("explicit_evaluation", "gather_rows"), ("explicit_evaluation", "spd_solve"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")

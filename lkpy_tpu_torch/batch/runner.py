@@ -10,8 +10,9 @@ state, as no component of the package does.
 
 Queries (reference: batch/_queries.py:178) are an ItemListCollection (keys
 become queries, lists the ``items`` of predict and score), a mapping of user
-IDs to candidate lists, or a sequence of user IDs or ``RecQuery`` objects.
-Data frames of queries wait for ``ItemListCollection.from_df``.
+IDs to candidate lists, a sequence of user IDs or ``RecQuery`` objects, or
+a long data frame keyed by ``user_id``, which is read as an
+ItemListCollection.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ class BatchPipelineRunner:
                 out.append(((uid,), RecQuery(user_id=uid, query_id=uid), il, "candidates"))
         else:
             if isinstance(queries, pd.DataFrame):
-                raise TypeError("a data frame of queries is not supported yet: pass an ItemListCollection")
+                return BatchPipelineRunner._normalize_queries(ItemListCollection.from_df(queries))
             for uid in queries:
                 if isinstance(uid, RecQuery):
                     out.append(((uid.query_id if uid.query_id is not None else uid.user_id,), uid, None, "test"))

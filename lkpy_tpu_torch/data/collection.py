@@ -3,8 +3,9 @@ ItemListCollection: keyed collections of item lists.
 
 Port of ``lkpy_tpu/data/collection.py`` (reference:
 src/lenskit/data/_collection/_base.py:48): collections keyed by tuples of
-IDs (e.g. ``user_id``) with lookup, projection and a long-frame export, and
-:class:`ArrayTopNILC`, the array-backed form the batch serving path returns.
+IDs (e.g. ``user_id``) with lookup, projected lookup and long-frame import
+and export, and :class:`ArrayTopNILC`, the array-backed form the batch
+serving path returns.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import pandas as pd
 
 from lkpy_tpu_torch.data.items import ItemList
-from lkpy_tpu_torch.data.keys import create_key_type
+from lkpy_tpu_torch.data.keys import create_key_type, project_key
 
 __all__ = ["ItemListCollection", "ItemListCollector", "ArrayTopNILC"]
 
@@ -60,6 +61,23 @@ class ItemListCollection:
             ilc.add(il, *k)
         return ilc
 
+    @classmethod
+    def from_df(cls, df: pd.DataFrame, key: Sequence[str] | str | None = None) -> "ItemListCollection":
+        """Create from a long DataFrame keyed by e.g. ``user_id`` (reference: _base.py:161)."""
+        if key is None:
+            key = [c for c in ("user_id",) if c in df.columns]
+            if not key:
+                raise ValueError("cannot infer key columns")
+        if isinstance(key, str):
+            key = (key,)
+        key = list(key)
+        ilc = cls(key)
+        for kvals, grp in df.groupby(key, sort=False):
+            if not isinstance(kvals, tuple):
+                kvals = (kvals,)
+            ilc.add(ItemList.from_df(grp.drop(columns=key)), *kvals)
+        return ilc
+
     def add(self, items: ItemList, *key: Any, **kwkey: Any) -> None:
         if kwkey:
             key = tuple(kwkey[f] for f in self._fields)
@@ -87,6 +105,15 @@ class ItemListCollection:
             key = key[0]
         idx = self._index.get(tuple(key))
         return self._list(idx) if idx is not None else None
+
+    def lookup_projected(self, key: tuple) -> ItemList | None:
+        """Lookup by a key that may have extra fields (reference: _base.py:528)."""
+        if hasattr(key, "_fields"):
+            try:
+                key = project_key(key, self._key_type)
+            except TypeError:
+                return None
+        return self.lookup(*key)
 
     def keys(self) -> Iterator[tuple]:
         for k in self._keys:

@@ -5,7 +5,8 @@ Port of the parts of ``lkpy_tpu/data/dataset.py`` that serving and the
 pipeline need (reference: src/lenskit/data/_dataset.py:63,
 _relationships.py:40,410): entity vocabularies, relationship tables, and the
 de-duplicated :class:`MatrixRelationshipSet` with its CSR, vocabularies, row
-access and per-item statistics.
+access and per-user and per-item statistics, and the interaction table that
+splitting and evaluation read.
 """
 
 from __future__ import annotations
@@ -49,6 +50,25 @@ class RelationshipSet:
     @property
     def entities(self) -> list[str]:
         return list(self.schema.entities.keys())
+
+    def count(self) -> int:
+        return len(self._table)
+
+    def pandas(self, *, attributes=None, ids: bool = False) -> pd.DataFrame:
+        """The records as a frame of ``<alias>_num`` and attribute columns,
+        with ``<alias>_id`` columns added when ``ids``."""
+        df = self._table
+        if attributes is not None:
+            if isinstance(attributes, str):
+                attributes = [attributes]
+            cols = [num_col_name(e) for e in self.entities] + list(attributes)
+            df = df[cols]
+        if ids:
+            df = df.copy()
+            for alias, cls in self.schema.entity_classes.items():
+                vocab = self._ds.entities(cls).vocabulary
+                df[f"{alias}_id"] = vocab.id_array(df[num_col_name(alias)].to_numpy())
+        return df
 
     def matrix(self, *, combine: str | None = None) -> "MatrixRelationshipSet":
         """De-duplicated two-entity matrix view."""
@@ -116,6 +136,8 @@ class MatrixRelationshipSet(RelationshipSet):
         fields = {n: v[s:e] for n, v in self._csr.fields.items()}
         return ItemList(item_nums=self._csr.colind[s:e], vocabulary=self.col_vocabulary, **fields)
 
+    def row_stats(self) -> pd.DataFrame:
+        return self._axis_stats(self._csr, self.row_vocabulary)
 
     def col_stats(self) -> pd.DataFrame:
         return self._axis_stats(self._csr.transpose(), self.col_vocabulary)
@@ -229,14 +251,26 @@ class Dataset:
     def interactions(self, name: str | None = None) -> RelationshipSet:
         return self.relationships(name or self.default_interaction_class)
 
+    @property
+    def interaction_count(self) -> int:
+        return self.interactions().count()
+
     def interaction_matrix(self, name: str | None = None) -> MatrixRelationshipSet:
         key = name or self.default_interaction_class
         if key not in self._matrix_cache:
             self._matrix_cache[key] = self.relationships(key).matrix()
         return self._matrix_cache[key]
 
+    def interaction_table(self, *, ids: bool = False) -> pd.DataFrame:
+        """The default interaction records as a frame (reference:
+        _dataset.py ``interaction_table``, its default pandas form)."""
+        return self.interactions().pandas(ids=ids)
+
     def item_stats(self) -> pd.DataFrame:
         return self.interaction_matrix().col_stats()
+
+    def user_stats(self) -> pd.DataFrame:
+        return self.interaction_matrix().row_stats()
 
     def user_row(self, user_id=None, *, user_num: int | None = None) -> ItemList | None:
         """A user's interaction history as an ItemList."""

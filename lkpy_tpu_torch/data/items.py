@@ -112,6 +112,36 @@ class ItemList:
                 raise ValueError(f"field {name!r} length {len(arr)} != item count {self._len}")
 
     @classmethod
+    def from_df(cls, df: pd.DataFrame, *, vocabulary: Vocabulary | None = None) -> "ItemList":
+        """Create from a DataFrame with ``item_id`` (or ``item_num``) and
+        optional score, rank and other columns (reference: _items.py:438).
+        ``user_*`` columns are dropped."""
+        ids = df["item_id"].to_numpy() if "item_id" in df.columns else None
+        nums = df["item_num"].to_numpy() if "item_num" in df.columns else None
+        fields = {}
+        ordered = None
+        scores = None
+        rank = None
+        for col in df.columns:
+            if col in ("item_id", "item_num") or col.startswith("user_"):
+                continue
+            if col == "score":
+                scores = df[col].to_numpy()
+            elif col == "rank":
+                rank = df[col].to_numpy()
+                if rank.dtype.kind == "f" and np.isnan(rank).any():
+                    # long frames mixing ordered and unordered lists carry
+                    # NaN ranks for the unordered ones — treat as unranked
+                    rank = None
+                else:
+                    ordered = True
+            else:
+                fields[col] = df[col].to_numpy()
+        return cls(
+            item_ids=ids, item_nums=nums, vocabulary=vocabulary, scores=scores, rank=rank, ordered=ordered, **fields
+        )
+
+    @classmethod
     def from_vocabulary(cls, vocab: Vocabulary) -> "ItemList":
         """All items in a vocabulary, in number order (reference: _items.py:518)."""
         return cls(item_nums=np.arange(len(vocab), dtype=np.int32), vocabulary=vocab)

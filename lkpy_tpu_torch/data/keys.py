@@ -23,6 +23,7 @@ __all__ = [
     "key_dict",
     "create_key",
     "create_key_type",
+    "project_key",
 ]
 
 GenericKey: TypeAlias = "tuple[ID, ...]"
@@ -79,3 +80,15 @@ def create_key_type(*fields: str) -> type[tuple]:
 def _reduce_generic_key(key):
     return create_key, (key._fields, *key)
 
+
+def project_key(key: tuple, target: type[tuple]) -> tuple:
+    """
+    Project a key onto a (subset) key type — e.g. look up test data keyed by
+    user ID with a (user ID, sequence) run key.
+    """
+    if isinstance(key, target):
+        return key
+    try:
+        return target._make(getattr(key, f) for f in target._fields)  # type: ignore[attr-defined]
+    except AttributeError as e:
+        raise TypeError(f"cannot project key {key!r} onto {target.__name__}: missing {e}") from None

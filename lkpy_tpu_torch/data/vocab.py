@@ -128,6 +128,13 @@ class Vocabulary:
             raise KeyError(f"{bad.size} IDs not in vocabulary {self.name!r} (first: {bad[:5]!r})")
         return nums
 
+    def id(self, num: int):
+        """Look up the ID for a number."""
+        n = int(num)
+        if n < 0 or n >= len(self._ids):
+            raise IndexError(f"number {n} out of range for vocabulary of size {len(self._ids)}")
+        return self._ids[n]
+
     def id_array(self, nums=None) -> np.ndarray:
         """Vectorized number → ID lookup (all IDs if ``nums`` is None)."""
         if nums is None:

@@ -32,6 +32,7 @@ from lkpy_tpu_torch.config import EmbeddingSizeMixin
 from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
 from lkpy_tpu_torch.models.bias import BiasModel, entity_damping
 from lkpy_tpu_torch.ops import als as als_ops
+from lkpy_tpu_torch.ops.gather_rows import gather_rows
 from lkpy_tpu_torch.ops.sparse import bucket_rows
 from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.training import ModelTrainer, TrainingOptions, UsesTrainer
@@ -134,11 +135,9 @@ def _f32(value, device: torch.device) -> torch.Tensor:
     return torch.tensor(np.asarray(value, dtype=np.float32), device=device)
 
 
-def _rows(table: torch.Tensor, nums) -> np.ndarray:
-    """Rows ``nums`` of a factor table, gathered where the table lies and
-    brought to the host."""
-    idx = torch.as_tensor(np.asarray(nums, dtype=np.int64), device=table.device)
-    return table[idx].cpu().numpy()
+def _nums(table: torch.Tensor, nums: np.ndarray) -> torch.Tensor:
+    """Row numbers of ``table`` as an int32 tensor on the table's device."""
+    return torch.as_tensor(np.asarray(nums, dtype=np.int32), device=table.device)
 
 
 class ALSBase(UsesTrainer, Component, nn.Module):
@@ -169,10 +168,13 @@ class ALSBase(UsesTrainer, Component, nn.Module):
         pass
 
     def __call__(self, query: QueryInput, items: ItemList) -> ItemList:
-        """Score ``items`` for one query on the host: the user's row of the
-        table, or a fold-in of the query's history (``user_items``) unless
-        ``user_embeddings="prefer"``.  Unknown items, and every item for a
-        user without row and history, score NaN."""
+        """Score ``items`` for one query where the tables lie: the user's row
+        of the table, or a fold-in of the query's history (``user_items``)
+        unless ``user_embeddings="prefer"``; on the card the fold-in gathers
+        the history rows (P) and solves (B2), the candidates' rows are
+        gathered (P) and scored there, and only the scores come to the host.
+        Unknown items, and every item for a user without row and history,
+        score NaN."""
         query = RecQuery.create(query)
         user_num = None
         if query.user_id is not None and self.users is not None:
@@ -188,15 +190,18 @@ class ALSBase(UsesTrainer, Component, nn.Module):
         if u_feat is None:
             if user_num is None or self.user_embeddings is None:
                 return ItemList(items, scores=np.full(len(items), np.nan, dtype=np.float32))
-            u_feat = _rows(self.user_embeddings, [user_num])[0]
+            u_feat = self.user_embeddings[user_num]
 
         item_nums = items.numbers(vocabulary=self.items, missing="negative")
         mask = item_nums >= 0
         scores = np.full(len(items), np.nan, dtype=np.float32)
-        scores[mask] = _rows(self.item_embeddings, item_nums[mask]) @ u_feat
+        rows = gather_rows(self.item_embeddings, _nums(self.item_embeddings, item_nums[mask]))
+        scores[mask] = (rows @ u_feat).cpu().numpy()
         return self.finalize_scores(user_num, ItemList(items, scores=scores), u_offset)
 
-    def new_user_embedding(self, user_num, items: ItemList) -> tuple[np.ndarray | None, float | None]:
+    def new_user_embedding(self, user_num, items: ItemList) -> tuple[torch.Tensor | None, float | None]:
+        """The fold-in of one query's history: ``(k,)`` embedding on the
+        device of the tables (or None) and the user's bias offset (or None)."""
         raise NotImplementedError
 
     def finalize_scores(self, user_num, items: ItemList, user_bias: float | None) -> ItemList:
@@ -384,9 +389,10 @@ class BiasedMFScorer(ALSBase):
         inums = items.numbers(vocabulary=self.items, missing="negative")
         mask = (inums >= 0) & np.isfinite(ratings)
         biases, u_bias = self.bias.compute_for_items(items, None, items)
-        resid = (ratings - biases)[mask]
-        rows = _rows(self.item_embeddings, inums[mask])
-        u_feat = als_ops.solve_row_explicit(np.arange(len(rows)), resid, rows, self.config.user_reg)
+        resid = torch.as_tensor(np.asarray((ratings - biases)[mask], dtype=np.float32), device=self.item_embeddings.device)
+        u_feat = als_ops.solve_row_explicit(
+            _nums(self.item_embeddings, inums[mask]), resid, self.item_embeddings, self.config.user_reg
+        )
         return u_feat, u_bias
 
     def finalize_scores(self, user_num, items: ItemList, user_bias: float | None) -> ItemList:
@@ -499,9 +505,12 @@ class ImplicitMFScorer(ALSBase):
             conf = ratings[good] * self.config.weight
         else:
             conf = np.full(int(np.sum(good)), self.config.weight)
-        rows = _rows(self.item_embeddings, inums[good])
+        dev = self.item_embeddings.device
         u_feat = als_ops.solve_row_implicit(
-            np.arange(len(rows)), conf.astype(np.float32), rows, self._OtOr.cpu().numpy()
+            _nums(self.item_embeddings, inums[good]),
+            torch.as_tensor(np.asarray(conf, dtype=np.float32), device=dev),
+            self.item_embeddings,
+            self._OtOr,
         )
         return u_feat, None
 

@@ -20,8 +20,9 @@ epochs.  Each chunk of a half-epoch
    change to the update delta.
 
 Fold-in of serving (:func:`solve_implicit_bucket`,
-:func:`solve_explicit_bucket`) solves through the fold-in kernel of
-:mod:`lkpy_tpu_torch.ops.spd_solve`.
+:func:`solve_explicit_bucket`, and :func:`solve_row_implicit`,
+:func:`solve_row_explicit` for one query) gathers with the row-gather kernel
+and solves through the fold-in kernel of :mod:`lkpy_tpu_torch.ops.spd_solve`.
 
 Explicit ALS (reference explicit.rs:81):  A = GᵀG + λ·n_u·I,  y = Gᵀ r.
 Implicit ALS (reference implicit.rs:26, Hu et al.):
@@ -326,28 +327,29 @@ def als_epoch(
     return u, i, torch.sqrt(du), torch.sqrt(di)
 
 
-# ---- single-row (fold-in) solves, on the host ------------------------------
-def solve_row_explicit(item_nums: np.ndarray, ratings: np.ndarray, right: np.ndarray, reg: float) -> np.ndarray:
-    """Fold-in solve for one user's normalized ratings
-    (reference: als/_explicit.py:121 ``_train_bias_row_cholesky``)."""
+# ---- single-row (fold-in) solves of per-query scoring ----------------------
+# One user's history as a bucket of one row, on the device of ``right``: on the
+# card one row gather (P) and one fold-in solve (B2), with the tables left there.
+def _one_row(item_nums: torch.Tensor, right: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    cols = item_nums.reshape(1, -1)
+    return cols, torch.ones(cols.shape, dtype=torch.bool, device=right.device)
+
+
+def solve_row_explicit(item_nums: torch.Tensor, ratings: torch.Tensor, right: torch.Tensor, reg: float) -> torch.Tensor:
+    """Fold-in solve for one user's normalized ratings (reference:
+    als/_explicit.py:121 ``_train_bias_row_cholesky``): (k,) on the device of
+    ``right``; zeros for an empty history."""
     if len(item_nums) == 0:
-        return np.zeros(right.shape[1], dtype=np.float32)
-    M = right[item_nums]
-    A = M.T @ M + np.eye(right.shape[1], dtype=np.float32) * (reg * len(item_nums))
-    y = M.T @ ratings.astype(np.float32)
-    from scipy.linalg import cho_factor, cho_solve
-
-    return cho_solve(cho_factor(A), y).astype(np.float32)
+        return torch.zeros(right.shape[1], dtype=right.dtype, device=right.device)
+    cols, mask = _one_row(item_nums, right)
+    return solve_explicit_bucket(cols, ratings.reshape(1, -1).to(right.dtype), mask, right, reg)[0]
 
 
-def solve_row_implicit(item_nums: np.ndarray, conf: np.ndarray, right: np.ndarray, otor: np.ndarray) -> np.ndarray:
-    """Fold-in solve for one user's confidence values
-    (reference: als/_implicit.py:97 ``_train_new_row``)."""
+def solve_row_implicit(item_nums: torch.Tensor, conf: torch.Tensor, right: torch.Tensor, otor: torch.Tensor) -> torch.Tensor:
+    """Fold-in solve for one user's confidence values (reference:
+    als/_implicit.py:97 ``_train_new_row``): (k,) on the device of
+    ``right``; zeros for an empty history."""
     if len(item_nums) == 0:
-        return np.zeros(right.shape[1], dtype=np.float32)
-    M = right[item_nums]
-    A = otor + (M.T * conf) @ M
-    y = M.T @ (conf + 1.0)
-    from scipy.linalg import cho_factor, cho_solve
-
-    return cho_solve(cho_factor(A), y.astype(np.float32)).astype(np.float32)
+        return torch.zeros(right.shape[1], dtype=right.dtype, device=right.device)
+    cols, mask = _one_row(item_nums, right)
+    return solve_implicit_bucket(cols, conf.reshape(1, -1).to(right.dtype), mask, right, otor)[0]

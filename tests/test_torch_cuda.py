@@ -517,3 +517,40 @@ def test_als_gather_runs_the_kernel(cuda):
     before = gather_rows.launches
     G = als_ops._gather(right, cols)
     assert gather_rows.launches == before + 1 and torch.equal(G, right[cols.long()])
+
+
+def test_quick_measure_model_on_card_matches_cpu(cuda):
+    from lkpy_tpu_torch.metrics import quick_measure_model
+
+    rng = np.random.default_rng(17)
+    ds = from_interactions_df(pd.DataFrame({"user_id": rng.integers(0, 400, 9000), "item_id": rng.integers(0, 250, 9000)}))
+    before = (spd_solve_chunked.launches, gather_rows.launches, spd_solve.launches)
+    on_card = quick_measure_model(ImplicitMFScorer(features=16, epochs=3), ds, n_recs=10, rng=5)
+    # B1 and P train; the per-query runner folds each user in on the card (P and B2)
+    assert spd_solve_chunked.launches > before[0] and gather_rows.launches > before[1]
+    assert spd_solve.launches - before[2] == len(on_card.split.test)
+    on_cpu = quick_measure_model(ImplicitMFScorer(features=16, epochs=3), ds, n_recs=10, rng=5, device="cpu")
+    assert list(on_card.split.test.keys()) == list(on_cpu.split.test.keys())
+    np.testing.assert_allclose(on_card.global_metrics().to_numpy(), on_cpu.global_metrics().to_numpy(), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("family", ["implicit", "explicit"])
+def test_per_query_scoring_on_card_matches_cpu(cuda, family):
+    # one query on the card: P gathers the history, B2 solves the fold-in, P
+    # gathers the candidates, and only the scores come back
+    import copy
+
+    from lkpy_tpu_torch.data import ItemList, RecQuery
+
+    ds = _ratings_dataset(np.random.default_rng(23))
+    scorer = ImplicitMFScorer(features=16, epochs=2) if family == "implicit" else BiasedMFScorer(features=50, epochs=2)
+    scorer.train(ds, TrainingOptions(rng=4, device="cpu"))
+    on_card = copy.deepcopy(scorer).to(cuda)
+    items = ItemList(item_ids=ds.items.ids)
+    for user in ds.users.ids[:5]:
+        query = RecQuery(user_id=user, user_items=ds.interaction_matrix().row_items(user))
+        before = (gather_rows.launches, spd_solve.launches)
+        got = on_card(query, items).scores()
+        assert (gather_rows.launches - before[0], spd_solve.launches - before[1]) == (2, 1)
+        np.testing.assert_allclose(got, scorer(query, items).scores(), rtol=1e-4, atol=1e-4)
+    assert on_card.item_embeddings.device.type == "cuda"

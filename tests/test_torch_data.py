@@ -109,3 +109,101 @@ def test_item_list_accessors():
         by_id.numbers()
     with pytest.raises(ValueError):
         ItemList(item_ids=[1, 2], scores=[0.1])
+
+
+@pytest.mark.parametrize("kind", ["int", "rating", "str"])
+def test_tables_counts_and_stats_match(kind):
+    df = _frame(np.random.default_rng(10 + len(kind)), kind)
+    ref = jax_from_df(df.copy())
+    got = from_interactions_df(df.copy())
+    assert got.interaction_count == ref.interaction_count == got.interactions().count()
+    for ids in (False, True):
+        pd.testing.assert_frame_equal(got.interaction_table(ids=ids), ref.interaction_table(ids=ids))
+        pd.testing.assert_frame_equal(got.interactions().pandas(ids=ids), ref.interactions().pandas(ids=ids))
+    attrs = ["rating"] if kind == "rating" else []
+    pd.testing.assert_frame_equal(
+        got.interactions().pandas(attributes=attrs), ref.interactions().pandas(attributes=attrs)
+    )
+    pd.testing.assert_frame_equal(got.user_stats(), ref.user_stats())
+    pd.testing.assert_frame_equal(got.item_stats(), ref.item_stats())
+    pd.testing.assert_frame_equal(got.interaction_matrix().row_stats(), ref.interaction_matrix().row_stats())
+    if kind == "rating":
+        assert {"mean_rating", "first_time", "last_time"} <= set(got.user_stats().columns)
+
+
+def test_vocabulary_id_matches():
+    from lkpy_tpu.data import Vocabulary as JaxVocabulary
+
+    for ids in (np.array([30, 10, 20]), np.array(["b", "a", "c"])):
+        for reorder in (True, False):
+            got, ref = Vocabulary(ids, "item", reorder=reorder), JaxVocabulary(ids, "item", reorder=reorder)
+            assert [got.id(n) for n in range(3)] == [ref.id(n) for n in range(3)]
+            assert got.id(np.int64(1)) == ref.id(1)
+            for bad in (-1, 3):
+                with pytest.raises(IndexError):
+                    got.id(bad)
+
+
+def test_item_list_from_df_matches():
+    from lkpy_tpu.data import ItemList as JaxItemList
+    from lkpy_tpu.data import Vocabulary as JaxVocabulary
+
+    frames = [
+        pd.DataFrame({"item_id": [5, 3, 9], "score": [0.9, 0.5, 0.1], "rank": [1, 2, 3], "rating": [4.0, 2.5, 1.0]}),
+        pd.DataFrame({"item_id": [5, 3], "rank": [np.nan, np.nan], "user_id": [1, 1], "user_x": [7, 8]}),
+        pd.DataFrame({"item_num": [2, 0, 1], "timestamp": [30, 10, 20]}),
+        pd.DataFrame({"item_id": ["a", "c"], "score": [np.nan, 1.0]}),
+        pd.DataFrame({"item_id": np.array([], dtype=np.int64)}),
+    ]
+    ids = np.array([3, 5, 9])
+    for df in frames:
+        vocab = (Vocabulary(ids, "item"), JaxVocabulary(ids, "item")) if "item_num" in df else (None, None)
+        got = ItemList.from_df(df, vocabulary=vocab[0])
+        ref = JaxItemList.from_df(df, vocabulary=vocab[1])
+        assert len(got) == len(ref) and got.ordered == ref.ordered
+        assert got.field_names == ref.field_names
+        np.testing.assert_array_equal(got.ids(), ref.ids())
+        for name in ref.field_names:
+            np.testing.assert_array_equal(got.field(name), ref.field(name))
+        pd.testing.assert_frame_equal(got.to_df(), ref.to_df())
+
+
+def test_collection_from_df_and_projection_match():
+    from lkpy_tpu.data import ItemListCollection as JaxILC
+    from lkpy_tpu.data.keys import create_key_type as jax_key_type
+    from lkpy_tpu.data.keys import project_key as jax_project_key
+    from lkpy_tpu_torch.data import ItemListCollection
+    from lkpy_tpu_torch.data.keys import create_key_type, project_key
+
+    rng = np.random.default_rng(6)
+    df = pd.DataFrame(
+        {
+            "user_id": rng.integers(0, 9, 60),
+            "seq": rng.integers(0, 2, 60),
+            "item_id": rng.integers(0, 40, 60),
+            "rating": rng.uniform(1, 5, 60),
+        }
+    )
+    for key in (None, "user_id", ["user_id", "seq"]):
+        got, ref = ItemListCollection.from_df(df, key), JaxILC.from_df(df, key)
+        assert got.key_fields == ref.key_fields
+        assert [tuple(k) for k in got.keys()] == [tuple(k) for k in ref.keys()]
+        pd.testing.assert_frame_equal(got.to_df(), ref.to_df())
+    with pytest.raises(ValueError):
+        ItemListCollection.from_df(df.drop(columns="user_id"))
+    by_user = ItemListCollection.from_df(df)
+    ref_user = JaxILC.from_df(df)
+    run_key, jax_run_key = create_key_type("user_id", "seq"), jax_key_type("user_id", "seq")
+    query_key = create_key_type("query_id")
+    for u in list(range(10)):
+        k, jk = run_key(u, 1), jax_run_key(u, 1)
+        a, b = by_user.lookup_projected(k), ref_user.lookup_projected(jk)
+        assert (a is None) == (b is None)
+        if b is not None:
+            np.testing.assert_array_equal(a.ids(), b.ids())
+        assert tuple(project_key(k, by_user.key_type)) == tuple(jax_project_key(jk, ref_user.key_type)) == (u,)
+        assert by_user.lookup_projected((u,)) is by_user.lookup(u)
+        assert by_user.lookup_projected(query_key(u)) is None
+    with pytest.raises(TypeError):
+        project_key(query_key(1), by_user.key_type)
+    assert project_key(by_user.key_type(3), by_user.key_type) == (3,)

@@ -91,3 +91,43 @@ def test_als_gather_goes_through_gather_rows(monkeypatch):
     assert x.shape == (6, 8) and calls == [((40, 8), (6, 5))]
     torch_als.solve_explicit_bucket(cols, conf, mask, right, 0.1)
     assert len(calls) == 2
+
+
+@pytest.mark.parametrize("family", ["implicit", "explicit"])
+def test_per_query_scoring_goes_through_gather_rows_and_spd_solve(monkeypatch, family):
+    # one query scores where the tables lie: the fold-in gathers the history
+    # rows and solves a bucket of one, and the candidates' rows are gathered
+    import pandas as pd
+
+    from lkpy_tpu_torch.data import ItemList, RecQuery, from_interactions_df
+    from lkpy_tpu_torch.models import als as als_models
+    from lkpy_tpu_torch.ops import spd_solve as spd_module
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    gathers, solves = [], []
+
+    def counting_gather(table, idx):
+        gathers.append(tuple(idx.shape))
+        return gather_rows(table, idx)
+
+    def counting_solve(A, y):
+        solves.append(tuple(y.shape))
+        return spd_module.spd_solve(A, y)
+
+    monkeypatch.setattr(torch_als, "gather_rows", counting_gather)
+    monkeypatch.setattr(als_models, "gather_rows", counting_gather)
+    monkeypatch.setattr(torch_als, "spd_solve", counting_solve)
+    rng = np.random.default_rng(9)
+    u, i = rng.integers(0, 30, 600), rng.integers(0, 25, 600)
+    ds = from_interactions_df(pd.DataFrame({"user_id": u, "item_id": i, "rating": rng.uniform(1, 5, 600)}))
+    if family == "implicit":
+        scorer = als_models.ImplicitMFScorer(features=8, epochs=2)
+    else:
+        scorer = als_models.BiasedMFScorer(features=8, epochs=2)
+    scorer.train(ds, TrainingOptions(rng=1, device="cpu"))
+    hist = ds.interaction_matrix().row_items(ds.users.ids[0])
+    gathers.clear()
+    out = scorer(RecQuery(user_id=ds.users.ids[0], user_items=hist), ItemList(item_ids=np.array([3, 4, 999])))
+    assert solves == [(1, 8)] and gathers == [(1, len(hist)), (2,)]
+    scores = out.scores()
+    assert np.isfinite(scores[:2]).all() and np.isnan(scores[2])

@@ -150,3 +150,36 @@ def test_embedding_size_exp_matches_jax(port, ref):
     assert got.embedding_size == want.embedding_size == 32
     assert got.model_dump() == want.model_dump()
     assert port({"embedding_size_exp": 3}).config.embedding_size == 8
+
+
+def test_runner_takes_a_data_frame_of_queries(implicit):
+    from lkpy_tpu.batch import BatchPipelineRunner as JaxRunner
+    from lkpy_tpu_torch.batch import BatchPipelineRunner
+
+    jp, tp, users = implicit
+    rng = np.random.default_rng(12)
+    frame = pd.DataFrame(
+        {"user_id": np.repeat(users[:6], 4), "item_id": rng.integers(1, 81, 24), "rating": rng.uniform(1, 5, 24)}
+    )
+    runs = []
+    for runner_cls, pipe, queries in [
+        (JaxRunner, jp, frame),
+        (BatchPipelineRunner, tp, frame),
+        (BatchPipelineRunner, tp, ItemListCollection.from_df(frame)),
+    ]:
+        runner = runner_cls(progress=False)
+        runner.recommend(n=10)
+        runner.score()
+        runs.append(runner.run(pipe, queries))
+    want, got, by_ilc = runs
+    assert got.outputs == want.outputs == ["recommendations", "scores"]
+    for u in users[:6]:
+        # test items feed score, never recommend
+        _assert_lists_agree(got.output("recommendations").lookup(u), want.output("recommendations").lookup(u), 10)
+        a, b = got.output("scores").lookup(u), want.output("scores").lookup(u)
+        np.testing.assert_array_equal(a.ids(), frame.loc[frame.user_id == u, "item_id"].to_numpy())
+        np.testing.assert_array_equal(a.ids(), b.ids())
+        np.testing.assert_array_equal(a.field("rating"), b.field("rating"))
+        # the tables agree within 1e-3 relative after 3 epochs (test_trained_factors_match_jax)
+        np.testing.assert_allclose(a.scores(), b.scores(), rtol=1e-3, atol=1e-4)
+        np.testing.assert_array_equal(by_ilc.output("scores").lookup(u).scores(), a.scores())

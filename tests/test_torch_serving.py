@@ -200,6 +200,12 @@ pipe = lkpy_tpu_torch.topn_pipeline(ImplicitMFScorer(features=8, epochs=2), n=5)
 pipe.train(ds, TrainingOptions(rng=1, device="cpu"))
 assert recommend(pipe, ds.users.ids[:9], n=5).total_items() > 0
 assert len(lkpy_tpu_torch.recommend(pipe, ds.users.ids[0], n=5)) == 5
+# offline evaluation: splitting, metrics and quick_measure_model
+import lkpy_tpu_torch.metrics, lkpy_tpu_torch.splitting
+from lkpy_tpu_torch.metrics import quick_measure_model
+from lkpy_tpu_torch.splitting import SampleN, sample_users
+assert len(sample_users(ds, 5, SampleN(2, rng=1), rng=1).test) == 5
+assert np.isfinite(quick_measure_model(ImplicitMFScorer(features=4, epochs=1), ds, n_recs=5, device="cpu").global_metrics()).all()
 # every module of the package, and the chip smoke script
 import importlib, pkgutil
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):

@@ -158,16 +158,26 @@ def test_solve_explicit_bucket_matches_jax(B, P):
         torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(mask), torch.from_numpy(right), 0.1
     ).numpy()
     np.testing.assert_allclose(got, ref, rtol=2e-3, atol=1e-4)
+    # one query's fold-in: the port solves the row as a bucket of one (the
+    # fold-in kernel's plain version here), the JAX package with LAPACK; both
+    # in float32, so they agree to rounding
     items = np.array([3, 7, 50])
     r = np.array([1.0, -0.5, 2.0], np.float32)
-    np.testing.assert_array_equal(
-        torch_als.solve_row_explicit(items, r, right, 0.1), jax_als.solve_row_explicit(items, r, right, 0.1)
+    t_items, t_r, t_right = torch.from_numpy(items), torch.from_numpy(r), torch.from_numpy(right)
+    np.testing.assert_allclose(
+        torch_als.solve_row_explicit(t_items, t_r, t_right, 0.1).numpy(),
+        jax_als.solve_row_explicit(items, r, right, 0.1),
+        rtol=1e-5,
+        atol=1e-6,
     )
     otor = right.T @ right + 0.1 * np.eye(K, dtype=np.float32)
-    np.testing.assert_array_equal(
-        torch_als.solve_row_implicit(items, r + 2, right, otor), jax_als.solve_row_implicit(items, r + 2, right, otor)
+    np.testing.assert_allclose(
+        torch_als.solve_row_implicit(t_items, t_r + 2, t_right, torch.from_numpy(otor)).numpy(),
+        jax_als.solve_row_implicit(items, r + 2, right, otor),
+        rtol=1e-5,
+        atol=1e-6,
     )
-    assert not torch_als.solve_row_implicit(items[:0], r[:0], right, otor).any()
+    assert not torch_als.solve_row_implicit(t_items[:0], t_r[:0], t_right, torch.from_numpy(otor)).any()
 
 
 def _frame(use_ratings: bool):
