@@ -22,14 +22,22 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    a grid of catalog and batch sizes, which the dispatch of
    ``retrieval_topk`` is held against), and the row gather
    (``gather_rows``, bit for bit against ``index_select`` at the shapes of
-   ``benchmarks/probe_gather.py`` and at edge cases; at the epochs' own
-   shapes within the training phases).
+   ``benchmarks/probe_gather.py``, the per-query runner's, a sweep of rows
+   and widths and edge cases; at the epochs' own shapes within the training
+   phases).  The gather-and-Gram kernel (``gather_gram``: the ALS normal
+   equations of a bucket) is held against its plain version and float64
+   sums, two launches to the bit, at the shapes the paths give it: the
+   epochs' largest user and widest item chunks, a serving block and one
+   runner query, implicit at 64 and explicit at 50 features, timed beside
+   the route it replaced (the row gather, a weighted copy, two
+   ``torch.bmm``), whose epoch is profiled too.
 3. Makes bench.py's synthetic ML-20M-scale interactions (138k users x 27k
    items, seed 42) once, and drives the paths of the port at full width,
    each with the launch counters set to 0 just before it and read just
    after:
-   every path checks that the solves and the row gather launched once a
-   chunk or a block:
+   every path checks that the solves and the gather-and-Gram kernel
+   launched once a chunk or a block, and the row gather only where rows are
+   wanted (the candidates of a per-query call):
    - serving: ``device_recommend`` with fold-in of 16,384 users, random
      factors (``features=64``), checked against a float64 NumPy/SciPy oracle
      and timed;
@@ -47,7 +55,8 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    - the user's path: ``topn_pipeline(ImplicitMFScorer(...), n=10)`` →
      ``Pipeline.train`` → ``lkpy_tpu_torch.batch.recommend`` of the 10,000
      test users through the device route (NDCG@10 against the direct
-     path's), and per-query ``recommend`` against the batch lists;
+     path's), and per-query ``recommend`` against the batch lists (one
+     gather-and-Gram launch, one fold-in solve and one row gather a query);
    - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
      on all the interactions, 5 % of the users (split, ``Pipeline.train``,
      the per-query runner, which folds each user in and scores on the card,
@@ -179,6 +188,19 @@ GATHER_EDGE_CASES = [(1, 37), (3, 37), (50, 1), (63, 37), (64, 1), (65, 1000), (
 #: (M, K) of one query in the per-query runner: a history of the mean length
 #: and the candidates (the items less the history) against the item table
 PER_QUERY_GATHERS = [(103, FEATURES), (N_ITEMS - 103, FEATURES), (103, EXPLICIT_FEATURES), (N_ITEMS - 103, EXPLICIT_FEATURES)]
+#: (M, K) of the row gather's sweep, each from a (27,000, K) table: a history,
+#: a thousand rows, a catalog's candidates and the probe's 4M rows, at the
+#: explicit width, the implicit width and the probe's
+GATHER_SWEEP = [(M, K) for K in (EXPLICIT_FEATURES, FEATURES, 128) for M in (100, 1_000, N_ITEMS, 1 << 22)]
+#: the gather-and-Gram kernel against its plain version: A's lower triangle
+#: and y within this relative tolerance and this share of their largest
+#: magnitude (the two sum the same float32 products in other orders), the
+#: share widened to the plain version's own distance from a float64 sum
+#: where that is larger (the batched product's float32 sums over the 90,000
+#: entries of the longest item row)
+GRAM_RTOL, GRAM_ATOL_SHARE = 1e-5, 1e-6
+#: and the kernel against a float64 sum, as a share of its largest magnitude
+GRAM_F64_SHARE = 1e-5
 #: users of the per-query check of the pipeline phase
 PER_QUERY_USERS = 20
 #: how far the pipeline's NDCG@10 may lie from the direct path's, each served
@@ -212,6 +234,7 @@ def log(*args):
 
 def kernel_wrappers() -> dict:
     """The port's kernel wrappers by name; each counts its launches."""
+    from lkpy_tpu_torch.ops.gather_gram import gather_gram
     from lkpy_tpu_torch.ops.gather_rows import gather_rows
     from lkpy_tpu_torch.ops.mips_topk import mips_topk
     from lkpy_tpu_torch.ops.spd_solve import spd_solve
@@ -222,6 +245,7 @@ def kernel_wrappers() -> dict:
         "spd_solve_chunked": spd_solve_chunked,
         "mips_topk": mips_topk,
         "gather_rows": gather_rows,
+        "gather_gram": gather_gram,
     }
 
 
@@ -469,9 +493,9 @@ def gather_bound(table, idx) -> tuple[float, str]:
 
 def gather_case(label: str, table, idx, reps: int = 20) -> dict:
     """Hold the row-gather kernel against ``index_select`` (its plain
-    version) bit for bit, and time kernel, plain version and one
+    version) bit for bit, and time in turns kernel, plain version and one
     ``torch.index_select`` call beside its bytes bound."""
-    from lkpy_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain, vector_width
+    from lkpy_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain, launch_depth, vector_width
 
     got = gather_rows(table, idx)
     torch.cuda.synchronize()
@@ -483,14 +507,21 @@ def gather_case(label: str, table, idx, reps: int = 20) -> dict:
     if M == 0:
         log(f"gather_rows {label}: no rows, equal (empty)")
         return row
-    ms = cuda_ms(lambda: gather_rows(table, idx), reps)
-    plain_ms = cuda_ms(lambda: gather_rows_plain(table, idx), reps)
-    lib_ms = cuda_ms(lambda: torch.index_select(table, 0, idx.reshape(-1)), reps)
+    fns = {
+        "kernel": lambda: gather_rows(table, idx),
+        "plain": lambda: gather_rows_plain(table, idx),
+        "library": lambda: torch.index_select(table, 0, idx.reshape(-1)),
+    }
+    times: dict[str, list[float]] = {}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):  # in turns
+        times.setdefault(name, []).append(cuda_ms(fns[name], reps))
+    ms, plain_ms, lib_ms = (float(np.mean(times[n])) for n in ("kernel", "plain", "library"))
     bound_ms, bound_by = gather_bound(table, idx)
     width = vector_width(table, got.view(M, K))
     log(
         f"gather_rows {label}: table {tuple(table.shape)}, {M} {row['index_type']} rows: kernel {ms:.4f} ms "
-        f"({M * K * 4 / ms / 1e9:.3f} TB/s written, {width * 4}-byte vectors), plain {plain_ms:.4f} ms, "
+        f"({M * K * 4 / ms / 1e9:.3f} TB/s written, {width * 4}-byte loads, {launch_depth(M, K)} units a thread), "
+        f"plain {plain_ms:.4f} ms, "
         f"index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x, "
         f"index_select {lib_ms / bound_ms:.2f}x); equal to the bit"
     )
@@ -516,16 +547,28 @@ def gather_kernel_phase(dev) -> list:
         idx = torch.from_numpy(edge.integers(0, 5000, M).astype(np.int32)).to(dev)
         if M > 1:
             idx[0], idx[-1] = 0, 4999
-        gather_case(f"edge K={K} M={M}", table, idx, reps=5)
+        rows.append(gather_case(f"edge K={K} M={M}", table, idx))
     base = torch.from_numpy(edge.standard_normal(400 * 67 + 1, dtype=np.float32)).to(dev)
     idx64 = torch.from_numpy(edge.integers(0, 400, (64, 37))).to(dev)
-    gather_case("edge view 4 bytes past an aligned start, int64 rows", base[1 : 1 + 400 * 64].view(400, 64), idx64, reps=5)
-    gather_case("edge rows 67 floats apart at an offset, int64 rows", base[: 400 * 67].view(400, 67)[:, 3:53], idx64, reps=5)
+    rows.append(gather_case("edge view 4 bytes past an aligned start, int64 rows", base[1 : 1 + 400 * 64].view(400, 64), idx64))
+    rows.append(gather_case("edge rows 67 floats apart at an offset, int64 rows", base[: 400 * 67].view(400, 67)[:, 3:53], idx64))
     for M, K in PER_QUERY_GATHERS:
         table = torch.from_numpy(edge.standard_normal((N_ITEMS, K), dtype=np.float32)).to(dev)
         idx = torch.from_numpy(edge.permutation(N_ITEMS)[:M].astype(np.int32)).to(dev)
-        gather_case(f"per-query ({N_ITEMS}, {K}) x {M}", table, idx, reps=20)
+        rows.append(gather_case(f"per-query ({N_ITEMS}, {K}) x {M}", table, idx, reps=20))
+    for M, K in GATHER_SWEEP:
+        table = torch.from_numpy(rng.standard_normal((N_ITEMS, K), dtype=np.float32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, N_ITEMS, M).astype(np.int32)).to(dev)
+        rows.append(gather_case(f"sweep ({N_ITEMS}, {K}) x {M}", table, idx, reps=20 if M < (1 << 20) else 10))
     return rows
+
+
+def gather_losses(rows: list) -> list:
+    """The timed shapes where the row gather is slower than
+    ``index_select``, logged; an empty list where it is nowhere slower."""
+    lost = [r["label"] for r in rows if "ms" in r and r["ms"] > r["library_ms"]]
+    log(f"gather_rows slower than index_select at {len(lost)} of {sum('ms' in r for r in rows)} timed shapes: {lost}")
+    return lost
 
 
 def gather_epoch_cases(trainer, k: int) -> list:
@@ -538,6 +581,161 @@ def gather_epoch_cases(trainer, k: int) -> list:
         gather_case(f"epoch k={k}: user chunk {tuple(u_chunk.cols.shape[1:])} of the item table", trainer.i_factors, u_chunk.cols[0]),
         gather_case(f"epoch k={k}: widest item chunk {tuple(i_chunk.cols.shape[1:])} of the user table", trainer.u_factors, i_chunk.cols[0]),
     ]
+
+
+def unfused_normal_eqs(cols, values, mask, right, *, otor=None, reg=None):
+    """The normal equations as the port formed them before the gather-and-Gram
+    kernel: the row-gather kernel writes ``G = right[cols]``, then a weighted
+    copy and two ``torch.bmm``.  Timed beside the kernel and profiled as the
+    epoch before it; the port no longer calls it."""
+    from lkpy_tpu_torch.ops.gather_rows import gather_rows
+
+    G = gather_rows(right, cols)
+    m = mask.to(right.dtype)
+    if otor is not None:
+        A = otor + torch.bmm((G * (values * m)[:, :, None]).transpose(1, 2), G)
+        return A, torch.bmm(G.transpose(1, 2), ((values + 1.0) * m)[:, :, None])[:, :, 0]
+    Gm = G * m[:, :, None]
+    eye = torch.eye(right.shape[1], dtype=right.dtype, device=right.device)
+    A = torch.bmm(Gm.transpose(1, 2), G) + (reg * m.sum(dim=1))[:, None, None] * eye
+    return A, torch.bmm(Gm.transpose(1, 2), values[:, :, None])[:, :, 0]
+
+
+def gram_bound(cols, mask, right, implicit: bool) -> tuple[float, str]:
+    """Least time (ms) for the normal equations of a (B, P) bucket: per real
+    slot k(k+1)/2 multiply-adds for A's lower triangle and k for y, in f32
+    outside the tensor cores; bytes: cols, values and mask read once, each
+    table row that a real slot names read once (and ``otor``), A's lower
+    triangle and y written once."""
+    (B, P), k = cols.shape, right.shape[1]
+    real = int(mask.sum())
+    touched = int(torch.unique(cols[mask]).numel()) if real else 0
+    ops = real * (k * (k + 1) + 2 * k)
+    nbytes = B * P * (cols.element_size() + 4 + 1) + touched * k * 4 + B * (k * (k + 1) // 2 + k) * 4 + implicit * k * k * 4
+    t_ops, t_bytes = ops / PEAK_F32_FLOP_PER_S, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, reps: int = 10) -> dict:
+    """Hold the gather-and-Gram kernel against its plain version (A's lower
+    triangle and y) and a float64 sum, check two launches equal to the bit,
+    and time in turns the kernel, its plain version (``index_select``, the
+    weighted copy, two ``torch.bmm``) and the route it replaced (the row
+    gather kernel, the copy and the products), beside its bound."""
+    from lkpy_tpu_torch.ops.gather_gram import copy_width, gather_gram, gather_gram_plain
+
+    kw = dict(otor=otor) if otor is not None else dict(reg=reg)
+    A, y = gather_gram(cols, values, mask, right, **kw)
+    A2, y2 = gather_gram(cols, values, mask, right, **kw)
+    torch.cuda.synchronize()
+    Ap, yp = gather_gram_plain(cols, values, mask, right, **kw)
+    k = right.shape[1]
+    li = torch.tril_indices(k, k, device=right.device)
+    low, low_p = A[:, li[0], li[1]], Ap[:, li[0], li[1]]
+    if not (torch.equal(low, A2[:, li[0], li[1]]) and torch.equal(y, y2)):
+        raise AssertionError(f"gather_gram {label}: two launches differ")
+    G = right.double()[cols.long()]
+    m = mask.double()
+    w, wy = (values.double() * m, (values.double() + 1) * m) if otor is not None else (m, values.double() * m)
+    A64 = torch.bmm((G * w[:, :, None]).transpose(1, 2), G)[:, li[0], li[1]]
+    A64 = A64 + (otor.double()[li[0], li[1]] if otor is not None else (reg * m.sum(1))[:, None] * (li[0] == li[1]).double())
+    y64 = torch.bmm(G.transpose(1, 2), wy[:, :, None])[:, :, 0]
+    del G
+    top64, top64_y = max(float(A64.abs().max()), 1e-30), max(float(y64.abs().max()), 1e-30)
+    err64 = float((low.double() - A64).abs().max()) / top64
+    err64_y = float((y.double() - y64).abs().max()) / top64_y
+    plain64 = float((low_p.double() - A64).abs().max()) / top64
+    plain64_y = float((yp.double() - y64).abs().max()) / top64_y
+    if max(err64, err64_y) > GRAM_F64_SHARE:
+        raise AssertionError(f"gather_gram {label}: {err64:.3e} (A) and {err64_y:.3e} (y) of the float64 sums' largest magnitude")
+    # the largest difference from plain in units of the tolerance (<= 1 passes)
+    share, share_y = max(GRAM_ATOL_SHARE, plain64), max(GRAM_ATOL_SHARE, plain64_y)
+    over = max(
+        float(((low - low_p).abs() / (GRAM_RTOL * low_p.abs() + share * top64)).max()),
+        float(((y - yp).abs() / (GRAM_RTOL * yp.abs() + share_y * top64_y)).max()),
+    )
+    if over > 1:
+        raise AssertionError(
+            f"gather_gram {label}: the kernel differs from the plain version by {over:.3f} times rtol {GRAM_RTOL} + "
+            f"{share:.3e} of the largest magnitude (against float64: kernel {err64:.3e}, plain {plain64:.3e})"
+        )
+    max_abs_err = max(float((low - low_p).abs().max()), float((y - yp).abs().max()))
+    times: dict[str, list[float]] = {}
+    fns = {
+        "kernel": lambda: gather_gram(cols, values, mask, right, **kw),
+        "plain": lambda: gather_gram_plain(cols, values, mask, right, **kw),
+        "unfused": lambda: unfused_normal_eqs(cols, values, mask, right, **kw),
+    }
+    for name in ("kernel", "plain", "unfused", "unfused", "plain", "kernel"):
+        times.setdefault(name, []).append(cuda_ms(fns[name], reps))
+    ms, plain_ms, unfused_ms = (float(np.mean(times[n])) for n in ("kernel", "plain", "unfused"))
+    bound_ms, bound_by = gram_bound(cols, mask, right, otor is not None)
+    real = int(mask.sum())
+    log(
+        f"gather_gram {label}: ({cols.shape[0]}, {cols.shape[1]}) {str(cols.dtype).removeprefix('torch.')} slots, {real} real, "
+        f"k={k}, {copy_width(right) * 4}-byte copies: kernel {ms:.4f} ms "
+        f"({real * (k * (k + 1) + 2 * k) / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"row-gather kernel + copy + bmm {unfused_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x); "
+        f"max abs error against plain {max_abs_err:.3e} ({over:.3f} of the tolerance); of the float64 sums' largest magnitude {err64:.3e} "
+        f"(plain {plain64:.3e}), y {err64_y:.3e} (plain {plain64_y:.3e}); two launches equal to the bit"
+    )
+    return dict(
+        label=label, rows=cols.shape[0], slots=cols.shape[1], real=real, k=k, index_type=str(cols.dtype).removeprefix("torch."),
+        max_abs_err=max_abs_err, f64_err=err64, plain_f64_err=plain64, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )  # fmt: skip
+
+
+def gram_chunk_cases(trainer, k: int, implicit: bool) -> list:
+    """The gather-and-Gram kernel at an epoch's own shapes: the user half's
+    largest chunk against the item table and the item half's widest chunk
+    against the user table, with the training run's own slots."""
+    from lkpy_tpu_torch.ops.als import implicit_otor
+
+    u_chunk = max((c for c in trainer.u_buckets), key=lambda c: c.cols.shape[1] * c.cols.shape[2])
+    i_chunk = max((c for c in trainer.i_buckets), key=lambda c: c.cols.shape[2])
+    out = []
+    for side, chunk, right, reg in (
+        ("user chunk", u_chunk, trainer.i_factors, trainer.config.user_reg),
+        ("widest item chunk", i_chunk, trainer.u_factors, trainer.config.item_reg),
+    ):
+        kw = dict(otor=implicit_otor(right, reg)) if implicit else dict(reg=reg)
+        label = f"epoch k={k}: {side} {tuple(chunk.cols.shape[1:])}"
+        out.append(gram_case(label, chunk.cols[0], chunk.values[0], chunk.mask[0], right, **kw))
+    return out
+
+
+def recording_grams(fn):
+    """Run ``fn()`` with ``ops/als.py``'s ``gather_gram`` wrapped to keep the
+    arguments of its call with the most slots; returns (fn's result, those
+    arguments as (cols, values, mask, right, keywords))."""
+    from lkpy_tpu_torch.ops import als as als_ops
+
+    kept = []
+    inner = als_ops.gather_gram
+
+    def keeping(cols, values, mask, right, **kw):
+        if not kept or cols.numel() > kept[0][0].numel():
+            kept[:] = [(cols, values, mask, right, kw)]
+        return inner(cols, values, mask, right, **kw)
+
+    als_ops.gather_gram = keeping
+    try:
+        out = fn()
+    finally:
+        als_ops.gather_gram = inner
+    return out, kept[0]
+
+
+def runner_gram_case(label: str, csr, right, *, otor=None, reg=None, weight: float = 1.0, length: int = 103) -> dict:
+    """The gather-and-Gram kernel at the per-query runner's B = 1: the first
+    user whose history has ``length`` items (the mean), as ``solve_row_*``
+    passes it."""
+    u = int(np.argmin(np.abs(csr.row_lengths() - length)))
+    cols = torch.from_numpy(csr.row_cols(u).astype(np.int32)).to(right.device).reshape(1, -1)
+    values = torch.full(cols.shape, weight, dtype=torch.float32, device=right.device)
+    mask = torch.ones(cols.shape, dtype=torch.bool, device=right.device)
+    return gram_case(label, cols, values, mask, right, otor=otor, reg=reg, reps=50)
 
 
 def synth_interactions(rng: np.random.Generator):
@@ -681,8 +879,8 @@ def slice_phase(dev, users, items, rng: np.random.Generator):
     launches = read_counts()
     log(f"serving path: device_recommend of {SERVE_USERS} users, first call {warm_s:.3f}s; launches {launches}")
     blocks = -(-SERVE_USERS // SERVE_CHUNK)
-    if launches["spd_solve"] != blocks or launches["gather_rows"] != blocks:
-        raise AssertionError(f"the serving path must launch spd_solve and gather_rows once a block ({blocks}): {launches}")
+    if launches["spd_solve"] != blocks or launches["gather_gram"] != blocks or launches["gather_rows"]:
+        raise AssertionError(f"the serving path must launch spd_solve and gather_gram once a block ({blocks}), no gather_rows: {launches}")
 
     if len(recs) != SERVE_USERS:
         raise AssertionError(f"{len(recs)} lists for {SERVE_USERS} users")
@@ -726,6 +924,28 @@ def slice_phase(dev, users, items, rng: np.random.Generator):
     return launches, ds
 
 
+def epochs_before(trainer, label: str, epochs: int = 3) -> None:
+    """Time ``epochs`` epochs of ``trainer`` and profile one with the normal
+    equations formed as before the gather-and-Gram kernel (the row-gather
+    kernel, a weighted copy, two ``torch.bmm``): the epoch's device time by
+    kernel before the change, beside the profile of the path as it is."""
+    from lkpy_tpu_torch.ops import als as als_ops
+
+    kernel = als_ops.gather_gram
+    als_ops.gather_gram = unfused_normal_eqs
+    try:
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(epochs):
+            ts = time.perf_counter()
+            float(trainer.train_epoch())
+            times.append(time.perf_counter() - ts)
+        log(f"{label}s before the gather-and-Gram kernel: {[t * 1e3 for t in times]} ms")
+        profile_device(lambda: trainer.train_epoch(), float(np.mean(times)) * 1e3, f"one {label} before the gather-and-Gram kernel", mark="gather_rows")
+    finally:
+        als_ops.gather_gram = kernel
+
+
 def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, dict, dict]:
     """The training path: ``ImplicitMFScorer.train`` on bench.py's split,
     checked, timed, profiled, and served.  Returns the launches of the
@@ -767,8 +987,8 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
         f"training path: ImplicitMFScorer.train, {EPOCHS} epochs, {train_s:.3f}s with set-up; launches {launches}, "
         f"{launches['spd_solve_chunked'] / EPOCHS:g} spd_solve_chunked launches per epoch"
     )
-    if launches["spd_solve_chunked"] == 0 or launches["gather_rows"] != launches["spd_solve_chunked"]:
-        raise AssertionError(f"the training path must launch spd_solve_chunked and gather_rows once a chunk: {launches}")
+    if launches["spd_solve_chunked"] == 0 or launches["gather_gram"] != launches["spd_solve_chunked"] or launches["gather_rows"]:
+        raise AssertionError(f"the training path must launch spd_solve_chunked and gather_gram once a chunk, no gather_rows: {launches}")
     for name in ("user_embeddings", "item_embeddings", "_OtOr"):
         t = getattr(scorer, name)
         if t.device.type != dev.type or not torch.isfinite(t).all():
@@ -780,6 +1000,7 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     log("chunks: items " + str([tuple(c.cols.shape) for c in trainer.i_buckets]))
     check_chunk_rows(trainer, FEATURES)
     gather_epoch = gather_epoch_cases(trainer, FEATURES)
+    gram = gram_chunk_cases(trainer, FEATURES, implicit=True)
     times, deltas = [], []
     for _ in range(EPOCHS):
         ts = time.perf_counter()
@@ -799,9 +1020,8 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
         float((trainer.u_factors - scorer.user_embeddings).abs().max()),
     )
     log(f"second trainer of the same seed vs the trained scorer: max abs difference {same:.3e}")
-    profile_device(
-        lambda: trainer.train_epoch(), float(np.mean(steady)) * 1e3, "one training epoch", mark="spd_solve_chunked"
-    )
+    epochs_before(trainer, "training epoch")
+    profile_device(lambda: trainer.train_epoch(), float(np.mean(steady)) * 1e3, "one training epoch", mark="gather_gram")
 
     # one user half-epoch against a float64 solve of the same normal equations
     Y = trainer.i_factors.double().cpu().numpy()
@@ -838,11 +1058,13 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     serve = np.random.default_rng(4).choice(ds.users.ids, size=SERVE_USERS, replace=False)
     blocks = -(-SERVE_USERS // SERVE_CHUNK)
     zero_counts()
-    recs = device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+    recs, block = recording_grams(lambda: device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev))
     served = read_counts()
     log(f"trained scorer, fold-in serving of {SERVE_USERS} users: launches {served}")
-    if served["spd_solve"] != blocks or served["gather_rows"] != blocks:
-        raise AssertionError(f"fold-in serving of the trained scorer must launch spd_solve and gather_rows once a block: {served}")
+    if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["gather_rows"]:
+        raise AssertionError(f"fold-in serving of the trained scorer must launch spd_solve and gather_gram once a block, no gather_rows: {served}")
+    gram.append(gram_case(f"serving block k={FEATURES}", *block[:4], **block[4]))
+    gram.append(runner_gram_case(f"runner B=1 k={FEATURES}", csr, scorer.item_embeddings, otor=scorer._OtOr, weight=w))
     check_lists(recs, csr, ds.users, SERVE_N)
     Y32 = scorer.item_embeddings.double().cpu().numpy()
     otor = scorer._OtOr.double().cpu().numpy()
@@ -864,7 +1086,7 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     log(f"NDCG@10 on the held-out split with fold-in of the test users: {nd_fold:.4f} (from the user table {nd:.4f})")
     split = dict(
         scorer=scorer, ds=ds, tr_u=tr_u, tr_i=tr_i, test_u=test_u, test_i=test_i, rng=rng, ndcg=nd, ndcg_fold=nd_fold,
-        gather_epoch=gather_epoch,
+        gather_epoch=gather_epoch, gram=gram,
         chunks_per_epoch=sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets),
     )  # fmt: skip
     return launches, served, split
@@ -1359,9 +1581,12 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
         f"explicit training path: BiasedMFScorer.train, k={EXPLICIT_FEATURES}, {EPOCHS} epochs, {train_s:.3f}s with set-up "
         f"(bias fit included); launches {launches}; {per_epoch} chunks per epoch"
     )
-    if launches["spd_solve_chunked"] != per_epoch * EPOCHS or launches["gather_rows"] != per_epoch * EPOCHS:
-        raise AssertionError(f"explicit training must launch spd_solve_chunked and gather_rows once a chunk: {launches}, {per_epoch} chunks")
+    if launches["spd_solve_chunked"] != per_epoch * EPOCHS or launches["gather_gram"] != per_epoch * EPOCHS or launches["gather_rows"]:
+        raise AssertionError(
+            f"explicit training must launch spd_solve_chunked and gather_gram once a chunk, no gather_rows: {launches}, {per_epoch} chunks"
+        )
     split["gather_epoch"] += gather_epoch_cases(trainer, EXPLICIT_FEATURES)
+    split["gram"] += gram_chunk_cases(trainer, EXPLICIT_FEATURES, implicit=False)
     for name in ("user_embeddings", "item_embeddings"):
         t = getattr(scorer, name)
         if t.device.type != dev.type or not torch.isfinite(t).all():
@@ -1378,7 +1603,8 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
         f"explicit epochs 2-{EPOCHS}: mean {np.mean(steady) * 1e3:.3f} ms, min {min(steady) * 1e3:.3f} ms, max "
         f"{max(steady) * 1e3:.3f} ms -> {2 * len(tr_u) * len(steady) / sum(steady):.4e} examples/s"
     )
-    profile_device(lambda: trainer.train_epoch(), float(np.mean(steady)) * 1e3, "one explicit epoch", mark="spd_solve_chunked")
+    epochs_before(trainer, "explicit epoch")
+    profile_device(lambda: trainer.train_epoch(), float(np.mean(steady)) * 1e3, "one explicit epoch", mark="gather_gram")
 
     # hold-out RMSE of clipped predictions through the scorer, beside the bias model's
     tq = time.perf_counter()
@@ -1407,13 +1633,15 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
     zero_counts()
     torch.cuda.synchronize()
     tw = time.perf_counter()
-    recs = device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+    recs, block = recording_grams(lambda: device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev))
     first_s = time.perf_counter() - tw
     served = read_counts()
     log(f"explicit serving path: device_recommend of {SERVE_USERS} users with fold-in, first call {first_s:.3f}s; launches {served}")
     blocks = -(-SERVE_USERS // SERVE_CHUNK)
-    if served["spd_solve"] != blocks or served["gather_rows"] != blocks:
-        raise AssertionError(f"explicit fold-in serving must launch spd_solve and gather_rows once a block ({blocks}): {served}")
+    if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["gather_rows"]:
+        raise AssertionError(f"explicit fold-in serving must launch spd_solve and gather_gram once a block ({blocks}), no gather_rows: {served}")
+    split["gram"].append(gram_case(f"serving block k={EXPLICIT_FEATURES}", *block[:4], **block[4]))
+    split["gram"].append(runner_gram_case(f"runner B=1 k={EXPLICIT_FEATURES}", csr, scorer.item_embeddings, reg=scorer.config.user_reg))
     if len(recs) != SERVE_USERS:
         raise AssertionError(f"{len(recs)} lists for {SERVE_USERS} users")
     check_lists(recs, csr, ds.users, SERVE_N)
@@ -1452,14 +1680,14 @@ def same_ids_at_clear_gaps(got, want) -> bool:
     return len(got) == len(want) and bool((np.asarray(got.ids())[clear] == np.asarray(want.ids())[clear]).all())
 
 
-def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
+def pipeline_phase(dev, split: dict) -> tuple[dict, dict, dict]:
     """The user's path: ``topn_pipeline(ImplicitMFScorer(...), n=10)`` →
     ``Pipeline.train`` on bench.py's split → ``recommend(pipe, users, n=10)``
     for the held-out split's test users, which takes the device route
     (``try_device_recommend``, fold-in of every user: B2 and the row gather
     once a block).  NDCG@10 against the direct path's, and per-query
     ``operations.recommend`` against the batch lists.  Returns the launches
-    of the training call and of the serving call."""
+    of the training call, of the serving call and of the per-query calls."""
     import lkpy_tpu_torch
     from lkpy_tpu_torch.batch import device as batch_device
     from lkpy_tpu_torch.batch import recommend
@@ -1480,8 +1708,8 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
     trained = read_counts()
     per_epoch = split["chunks_per_epoch"]
     log(f"pipeline path: Pipeline.train, {train_s:.3f}s with set-up (every component); launches {trained}")
-    if trained["spd_solve_chunked"] != per_epoch * EPOCHS or trained["gather_rows"] != per_epoch * EPOCHS or trained["spd_solve"]:
-        raise AssertionError(f"Pipeline.train must launch B1 and the gather once a chunk ({per_epoch * EPOCHS}): {trained}")
+    if trained["spd_solve_chunked"] != per_epoch * EPOCHS or trained["gather_gram"] != per_epoch * EPOCHS or trained["spd_solve"] or trained["gather_rows"]:
+        raise AssertionError(f"Pipeline.train must launch B1 and gather_gram once a chunk ({per_epoch * EPOCHS}), no B2 or P: {trained}")
     if scorer.item_embeddings.device.type != dev.type or not torch.isfinite(scorer.item_embeddings).all():
         raise AssertionError("the pipeline's trained item table must be finite and on the card")
 
@@ -1510,8 +1738,8 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
     log(f"pipeline path: recommend of {len(users)} users, n=10, {serve_s:.3f}s; launches {served}; {blocks} blocks")
     if len(taken) != 1 or taken[0] is None or taken[0] is not recs:
         raise AssertionError("recommend(pipe, users, n=10) must take the device route (try_device_recommend)")
-    if served["spd_solve"] != blocks or served["gather_rows"] != blocks or served["spd_solve_chunked"]:
-        raise AssertionError(f"the pipeline's serving call must launch B2 and the gather once a block ({blocks}): {served}")
+    if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["spd_solve_chunked"] or served["gather_rows"]:
+        raise AssertionError(f"the pipeline's serving call must launch B2 and gather_gram once a block ({blocks}), no B1 or P: {served}")
     rec_users, rec10 = [], []
     for key, il in recs.items():
         rec_users.append(key[0])
@@ -1534,14 +1762,19 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
             f"{NDCG_PIPELINE_TOL} of the direct path's {split['ndcg_fold']}, {split['ndcg']}"
         )
 
-    # per query: history lookup, candidates, the scorer's host fold-in, the ranker
+    # per query: history lookup, candidates, the scorer's fold-in and scores on the card, the ranker
+    zero_counts()
     tq = time.perf_counter()
     for u in users[:PER_QUERY_USERS]:
         one = lkpy_tpu_torch.recommend(pipe, u, n=10)
         if not same_ids_at_clear_gaps(one, recs.lookup(u)):
             raise AssertionError(f"user {u}: per-query recommend {list(one.ids())} differs from the batch list {list(recs.lookup(u).ids())}")
-    log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s)")
-    return trained, served
+    per_query = read_counts()
+    log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s); launches {per_query}")
+    want = {"spd_solve": PER_QUERY_USERS, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": PER_QUERY_USERS, "gather_gram": PER_QUERY_USERS}
+    if per_query != want:
+        raise AssertionError(f"per-query recommend must launch B2, gather_gram and gather_rows once a query: {per_query}")
+    return trained, served, per_query
 
 
 def chunks_per_epoch(ds) -> int:
@@ -1599,10 +1832,11 @@ def instrumented_quick(*args, **kwargs):
 
 
 def check_quick_launches(label: str, steps: dict, res, scorer, predicts: bool) -> None:
-    """Under ``quick_measure_model``, ``Pipeline.train`` launches B1 and P
-    once a training chunk and no B2; the per-query runner launches no B1,
-    and for every scorer call P and B2 to fold the user's training history
-    in and P for the rows of the call's known items.  Each test user's
+    """Under ``quick_measure_model``, ``Pipeline.train`` launches B1 and the
+    gather-and-Gram kernel once a training chunk, no B2 and no P; the
+    per-query runner launches no B1, and for every scorer call the
+    gather-and-Gram kernel and B2 to fold the user's training history in and
+    P for the rows of the call's known items.  Each test user's
     query is one recommend call (the unseen training items) and, with
     ``predicts``, one predict call (the user's test items)."""
     per_chunk = chunks_per_epoch(res.split.train) * EPOCHS
@@ -1610,8 +1844,8 @@ def check_quick_launches(label: str, steps: dict, res, scorer, predicts: bool) -
     calls = len(test) * (2 if predicts else 1)
     unknown = sum(not (scorer.items.numbers(t.ids(), missing="negative") >= 0).any() for _, t in test.items()) if predicts else 0
     want = {
-        "train": {"spd_solve": 0, "spd_solve_chunked": per_chunk, "mips_topk": 0, "gather_rows": per_chunk},
-        "run": {"spd_solve": calls, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": 2 * calls - unknown},
+        "train": {"spd_solve": 0, "spd_solve_chunked": per_chunk, "mips_topk": 0, "gather_rows": 0, "gather_gram": per_chunk},
+        "run": {"spd_solve": calls, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": calls - unknown, "gather_gram": calls},
     }
     log(f"{label}: launches by step {steps}; {per_chunk} training chunks, {calls} scorer calls ({unknown} with no known item)")
     for step, counts in want.items():
@@ -1694,7 +1928,7 @@ def evaluation_phase(dev, ds, rng: np.random.Generator):
     if max(abs(ndcg - gm[f"NDCG@{EVAL_N}"]), abs(rec - gm[f"Recall@{EVAL_N}"])) > EVAL_METRIC_TOL:
         raise AssertionError(f"RunAnalysis's means differ from the script's own: {gm.to_dict()} against {ndcg}, {rec}")
 
-    # the same trained pipeline through the device route: B2 and the gather once a block
+    # the same trained pipeline through the device route: B2 and gather_gram once a block
     users = np.array([k.user_id for k in res.split.test.keys()])
     taken = []
     route = batch_device.try_device_recommend
@@ -1719,8 +1953,8 @@ def evaluation_phase(dev, ds, rng: np.random.Generator):
     log(f"evaluation: device route of the {len(users)} evaluated users, {serve_s:.3f}s; launches {served}; {blocks} blocks")
     if len(taken) != 1 or taken[0] is None or taken[0] is not fast:
         raise AssertionError("recommend(pipe, users, n=20) must take the device route (try_device_recommend)")
-    if served["spd_solve"] != blocks or served["gather_rows"] != blocks or served["spd_solve_chunked"]:
-        raise AssertionError(f"the device route must launch B2 and the gather once a block ({blocks}): {served}")
+    if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["spd_solve_chunked"] or served["gather_rows"]:
+        raise AssertionError(f"the device route must launch B2 and gather_gram once a block ({blocks}), no B1 or P: {served}")
     differ = [u for u in users if not same_ids_at_clear_gaps(res.recommendations.lookup(u), fast.lookup(u))]
     nd_fast = float(RunAnalysis(NDCG(EVAL_N)).measure(fast, res.split.test).global_metrics()[f"NDCG@{EVAL_N}"])
     log(
@@ -1772,7 +2006,7 @@ def main() -> int:
         register_route_info, solve_route, spd_solve_chunked, spd_solve_chunked_plain,
     )  # fmt: skip
 
-    missing = {"gather_rows", "mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
+    missing = {"gather_gram", "gather_rows", "mips_topk", "spd_solve", "spd_solve_chunked"} - set(_build.sources())
     if missing:
         raise AssertionError(f"kernel sources missing from the checkout: {sorted(missing)}")
     card = card_line()
@@ -1821,6 +2055,7 @@ def main() -> int:
     log(f"spd_solve_chunked register route as compiled: {chunked['register_route']}")
     topk = topk_kernel_phase(dev)
     gather_probe = gather_kernel_phase(dev)
+    candidates = next(r for r in gather_probe if r["label"] == f"per-query ({N_ITEMS}, {FEATURES}) x {N_ITEMS - 103}")
 
     # bench.py's interactions, made once; each path continues the generator
     # from the state it had right after them, as bench.py does
@@ -1840,7 +2075,7 @@ def main() -> int:
     # the later phases draw on from the generator where the split left it, as bench.py does
     retrieval = retrieval_phase(dev, split["scorer"], split["rng"])
     explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
-    pipeline_training, pipeline_serving = pipeline_phase(dev, split)
+    pipeline_training, pipeline_serving, pipeline_per_query = pipeline_phase(dev, split)
     evaluation_training, evaluation_serving, explicit_evaluation = evaluation_phase(dev, full, split["rng"])
 
     paths = {
@@ -1852,17 +2087,20 @@ def main() -> int:
         "explicit_serving": explicit_serving,
         "pipeline_training": pipeline_training,
         "pipeline_serving": pipeline_serving,
+        "pipeline_per_query": pipeline_per_query,
         "evaluation_training": evaluation_training,
         "evaluation_serving": evaluation_serving,
         "explicit_evaluation": explicit_evaluation,
     }
     for path, kernel in [
-        ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_serving", "spd_solve"),
-        ("pipeline_training", "spd_solve_chunked"), ("pipeline_training", "gather_rows"), ("pipeline_serving", "spd_solve"),
-        ("pipeline_serving", "gather_rows"), ("evaluation_training", "spd_solve_chunked"),
+        ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_training", "gather_gram"),
+        ("explicit_serving", "spd_solve"), ("explicit_serving", "gather_gram"), ("pipeline_training", "spd_solve_chunked"),
+        ("pipeline_training", "gather_gram"), ("pipeline_serving", "spd_solve"), ("pipeline_serving", "gather_gram"),
+        ("pipeline_per_query", "gather_rows"), ("pipeline_per_query", "gather_gram"), ("pipeline_per_query", "spd_solve"),
+        ("evaluation_training", "spd_solve_chunked"), ("evaluation_training", "gather_gram"),
         ("evaluation_training", "gather_rows"), ("evaluation_training", "spd_solve"), ("evaluation_serving", "spd_solve"),
-        ("evaluation_serving", "gather_rows"), ("explicit_evaluation", "spd_solve_chunked"),
-        ("explicit_evaluation", "gather_rows"), ("explicit_evaluation", "spd_solve"),
+        ("evaluation_serving", "gather_gram"), ("explicit_evaluation", "spd_solve_chunked"),
+        ("explicit_evaluation", "gather_gram"), ("explicit_evaluation", "gather_rows"), ("explicit_evaluation", "spd_solve"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
@@ -1899,13 +2137,29 @@ def main() -> int:
             route="cuda",
             source="lkpy_tpu_torch/csrc/gather_rows.cu",
             replaces="benchmarks/probe_gather.py:113",
-            launches=pipeline_training["gather_rows"] + pipeline_serving["gather_rows"],
+            # the user's path gathers rows on the card only in a per-query call: the candidates' item rows
+            launches=pipeline_per_query["gather_rows"],
             launches_by_path={p: c["gather_rows"] for p, c in paths.items()},
-            # the main row: the implicit epoch's largest chunk, the user half's (30024, 120) against the item table
-            **{k: v for k, v in split["gather_epoch"][0].items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            shape=split["gather_epoch"][0]["label"],
+            # the main row: the runner's candidates, 26,897 rows of the (27,000, 64) item table
+            **{k: v for k, v in candidates.items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            shape=candidates["label"],
+            slower_than_index_select=gather_losses(gather_probe + split["gather_epoch"]),
             epoch_shapes=split["gather_epoch"],
             probe_shapes=gather_probe,
+        ),
+        dict(
+            name="gather_gram",
+            route="cuda",
+            source="lkpy_tpu_torch/csrc/gather_gram.cu",
+            # P on the routes where the gathered rows only feed the normal equations, with the XLA gather
+            # and einsums of lkpy_tpu/ops/als.py:117-159 around it
+            replaces="benchmarks/probe_gather.py:113",
+            launches=pipeline_training["gather_gram"] + pipeline_serving["gather_gram"],
+            launches_by_path={p: c["gather_gram"] for p, c in paths.items()},
+            # the main row: the implicit epoch's largest chunk, the user half's (30024, 120) against the item table
+            **{k: v for k, v in split["gram"][0].items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            shape=split["gram"][0]["label"],
+            shapes=split["gram"],
         ),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s after the start of the checks")

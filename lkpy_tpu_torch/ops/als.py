@@ -8,21 +8,24 @@ batches (:func:`lkpy_tpu_torch.ops.sparse.bucket_rows`) and cut into
 fixed-shape chunks (:func:`chunk_buckets`), which stay on the device across
 epochs.  Each chunk of a half-epoch
 
-1. gathers the opposite-side factors ``G = right[cols]``  (B, P, k) with
-   the hand-written row-gather kernel (:mod:`lkpy_tpu_torch.ops.gather_rows`,
-   the port of the TPU gather probe's kernel; ``index_select`` on the CPU),
-2. forms the per-row normal equations with batched matrix products in
-   float32 (``torch.bmm``, as JAX computes them outside any kernel),
-3. solves them with the hand-written training kernel
+1. forms the per-row normal equations with the hand-written gather-and-Gram
+   kernel (:mod:`lkpy_tpu_torch.ops.gather_gram`): it reads the
+   opposite-side factor rows ``right[cols]`` by index into shared memory and
+   sums A's lower triangle and y in float32 registers, so the gathered
+   (B, P, k) rows never reach device memory (the JAX package gathers with
+   XLA and forms them with einsums; the plain version, on the CPU, is
+   ``index_select``, a weighted copy and two ``torch.bmm``),
+2. solves them with the hand-written training kernel
    (:mod:`lkpy_tpu_torch.ops.spd_solve_chunked`, the port of the TPU's
    ``pallas_gj`` kernel; its plain version on the CPU),
-4. scatters the real rows' solutions into the factor table and adds their
+3. scatters the real rows' solutions into the factor table and adds their
    change to the update delta.
 
 Fold-in of serving (:func:`solve_implicit_bucket`,
 :func:`solve_explicit_bucket`, and :func:`solve_row_implicit`,
-:func:`solve_row_explicit` for one query) gathers with the row-gather kernel
-and solves through the fold-in kernel of :mod:`lkpy_tpu_torch.ops.spd_solve`.
+:func:`solve_row_explicit` for one query) forms its equations with the same
+kernel and solves them through the fold-in kernel of
+:mod:`lkpy_tpu_torch.ops.spd_solve`.
 
 Explicit ALS (reference explicit.rs:81):  A = GᵀG + λ·n_u·I,  y = Gᵀ r.
 Implicit ALS (reference implicit.rs:26, Hu et al.):
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
-from lkpy_tpu_torch.ops.gather_rows import gather_rows
+from lkpy_tpu_torch.ops.gather_gram import gather_gram
 from lkpy_tpu_torch.ops.sparse import PaddedRowMatrix
 from lkpy_tpu_torch.ops.spd_solve import spd_solve
 from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
@@ -60,8 +63,9 @@ __all__ = [
 #: row number of the padding rows that fill a bucket's last chunk
 INT32_MAX = int(np.iinfo(np.int32).max)
 
-# bound the live (B, P, k) gathered-factor tensor of a chunk to 4M entries
-# (1 GB at k=64 f32), as the JAX package does
+# a chunk holds about 4M entries, as the JAX package's bound on its live
+# (B, P, k) gathered-factor tensor (1 GB at k=64 f32); the port's kernel
+# gathers into shared memory, so the bound now sets only the launch size
 _CHUNK_ENTRIES = 4_000_000
 
 
@@ -74,37 +78,6 @@ def batched_spd_solve(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return spd_solve(A, y)
 
 
-def _gather(right: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """``right[cols]`` for (B, P) int32 or int64 column numbers: (B, P, k),
-    through the row-gather kernel on the card (its plain version on the
-    CPU)."""
-    return gather_rows(right, cols)
-
-
-def _implicit_normal_eqs(cols, conf, mask, right, otor):
-    """Normal equations of a bucket of implicit rows: A (B, k, k), y (B, k)."""
-    G = _gather(right, cols)
-    m = mask.to(right.dtype)
-    cm = conf * m
-    A = otor + torch.bmm((G * cm[:, :, None]).transpose(1, 2), G)
-    y = torch.bmm(G.transpose(1, 2), ((conf + 1.0) * m)[:, :, None])[:, :, 0]
-    return A, y
-
-
-def _explicit_normal_eqs(cols, vals, mask, right, reg):
-    """Normal equations of a bucket of explicit rows: A (B, k, k), y (B, k).
-    Rows without entries (padding) get A = 0."""
-    G = _gather(right, cols)
-    m = mask.to(right.dtype)
-    Gm = G * m[:, :, None]
-    k = right.shape[1]
-    n_u = m.sum(dim=1)
-    A = torch.bmm(Gm.transpose(1, 2), G)
-    A = A + (reg * n_u)[:, None, None] * torch.eye(k, dtype=A.dtype, device=A.device)
-    y = torch.bmm(Gm.transpose(1, 2), vals[:, :, None])[:, :, 0]
-    return A, y
-
-
 def solve_explicit_bucket(
     cols: torch.Tensor,  # (B, P) integer
     vals: torch.Tensor,  # (B, P) f32 (normalized ratings)
@@ -112,8 +85,9 @@ def solve_explicit_bucket(
     right: torch.Tensor,  # (n_right, k) f32
     reg: float,
 ) -> torch.Tensor:
-    """One bucket of explicit-ALS row solves; returns (B, k) solutions."""
-    A, y = _explicit_normal_eqs(cols, vals, mask, right, reg)
+    """One bucket of explicit-ALS row solves; returns (B, k) solutions (a row
+    without entries has A = 0 and a non-finite solution)."""
+    A, y = gather_gram(cols, vals, mask, right, reg=reg)
     return batched_spd_solve(A, y).to(right.dtype)
 
 
@@ -126,7 +100,7 @@ def solve_implicit_bucket(
 ) -> torch.Tensor:
     """One bucket of implicit-ALS row solves (Hu et al. confidence weighting);
     returns (B, k) solutions."""
-    A, y = _implicit_normal_eqs(cols, conf, mask, right, otor)
+    A, y = gather_gram(cols, conf, mask, right, otor=otor)
     return batched_spd_solve(A, y).to(right.dtype)
 
 
@@ -233,10 +207,7 @@ def epoch_flops(u_stats: dict, i_stats: dict, k: int, *, useful: bool) -> float:
 
 def _solve_chunk(cols, values, mask, right, otor, reg, mode: str) -> torch.Tensor:
     """One chunk's row solves through the training kernel: (B, k)."""
-    if mode == "implicit":
-        A, y = _implicit_normal_eqs(cols, values, mask, right, otor)
-    else:
-        A, y = _explicit_normal_eqs(cols, values, mask, right, reg)
+    A, y = gather_gram(cols, values, mask, right, **({"otor": otor} if mode == "implicit" else {"reg": reg}))
     return spd_solve_chunked(A, y)
 
 
@@ -329,7 +300,8 @@ def als_epoch(
 
 # ---- single-row (fold-in) solves of per-query scoring ----------------------
 # One user's history as a bucket of one row, on the device of ``right``: on the
-# card one row gather (P) and one fold-in solve (B2), with the tables left there.
+# card one gather-and-Gram launch and one fold-in solve (B2), with the tables
+# left there.
 def _one_row(item_nums: torch.Tensor, right: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     cols = item_nums.reshape(1, -1)
     return cols, torch.ones(cols.shape, dtype=torch.bool, device=right.device)

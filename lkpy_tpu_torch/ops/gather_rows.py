@@ -4,11 +4,14 @@ Row gather: ``table[idx]`` for a float32 table and integer row numbers.
 Port of ``benchmarks/probe_gather.py::make_pallas`` (the Pallas kernels
 ``_dma_kernel``, one DMA a row, and ``_vmem_rowcopy_kernel``, one
 dynamic-slice copy a row), which asked whether a hand-written gather beats
-the compiler's at the ALS factor-row shapes.  On the port's path it is the
-factor gather ``G = right[cols]`` of every training chunk and every fold-in
-block (:func:`lkpy_tpu_torch.ops.als._gather`).  The hand-written CUDA
-kernel is ``csrc/gather_rows.cu``: a thread a 16-, 8- or 4-byte vector of
-a row, warps over rows grid-stride, streaming stores.
+the compiler's at the ALS factor-row shapes.  On the port's path it gathers
+the rows that are wanted as rows: the candidates' item rows of a per-query
+scorer call (``models/als.py::ALSBase.__call__``).  Where the gathered rows
+only feed the ALS normal equations, :mod:`lkpy_tpu_torch.ops.gather_gram`
+gathers them inside its own kernel.  The hand-written CUDA kernel is
+``csrc/gather_rows.cu``: a flat walk of the output in 16-byte units, 1 or
+4 units a thread, each unit's floats loaded in 16-, 8- or 4-byte vectors
+as the table allows.
 
 :func:`gather_rows` launches the kernel for CUDA tensors and runs
 :func:`gather_rows_plain` (``index_select``) for CPU tensors; the two are
@@ -23,7 +26,10 @@ import ctypes
 
 import torch
 
-__all__ = ["gather_rows", "gather_rows_plain", "vector_width"]
+__all__ = ["DEPTHS", "gather_rows", "gather_rows_plain", "launch_depth", "vector_width"]
+
+#: the units a thread the kernel is compiled for
+DEPTHS = (1, 4)
 
 _lib = None
 
@@ -43,9 +49,12 @@ def _library():
             ctypes.c_void_p,
             ctypes.c_longlong,
             ctypes.c_int,
+            ctypes.c_int,
             ctypes.c_void_p,
         ]
         lib.lkt_gather_rows_f32.restype = ctypes.c_int
+        lib.lkt_gather_rows_depth.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.lkt_gather_rows_depth.restype = ctypes.c_int
         lib.lkt_gather_rows_width.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
         lib.lkt_gather_rows_width.restype = ctypes.c_int
         _lib = lib
@@ -82,11 +91,14 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
-def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors."""
+def _launch(table: torch.Tensor, idx: torch.Tensor, depth: int = 0) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors, ``depth`` units a thread (one of
+    :data:`DEPTHS`), or as many as :func:`launch_depth` gives for 0."""
     _check(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"gather_rows runs on cuda or cpu, not {table.device}")
+    if depth != 0 and depth not in DEPTHS:
+        raise ValueError(f"gather_rows's kernel takes {DEPTHS} units a thread, not {depth}")
     n, K = table.shape
     if K > 1 and table.stride(1) != 1:
         raise ValueError("gather_rows's kernel takes a table with unit stride within a row")
@@ -101,19 +113,26 @@ def _launch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             stream = torch.cuda.current_stream(table.device).cuda_stream
             err = lib.lkt_gather_rows_f32(
                 table.data_ptr(), max(table.stride(0), K), n, flat.data_ptr(), flat.element_size(),
-                out.data_ptr(), M, K, stream,
+                out.data_ptr(), M, K, depth, stream,
             )  # fmt: skip
         if err != 0:
-            raise RuntimeError(f"gather_rows kernel launch failed with CUDA error {err} (n={n}, K={K}, M={M})")
+            raise RuntimeError(f"gather_rows kernel launch failed with CUDA error {err} (n={n}, K={K}, M={M}, depth={depth})")
         gather_rows.launches += 1
     return out.view(*idx.shape, K)
 
 
 def vector_width(table: torch.Tensor, out: torch.Tensor) -> int:
-    """The vector width in floats (4, 2 or 1) the kernel takes for this
-    table and output (needs the card's toolkit)."""
+    """The width in floats (4, 2 or 1) of the kernel's table loads for this
+    table; its stores are 16-byte units of ``out``, which the wrapper
+    allocates aligned (needs the card's toolkit)."""
     K = table.shape[1]
     return int(_library().lkt_gather_rows_width(table.data_ptr(), max(table.stride(0), K), out.data_ptr(), K))
+
+
+def launch_depth(M: int, K: int) -> int:
+    """The units a thread the kernel takes for ``M`` rows of ``K`` floats
+    when not told (needs the card's toolkit)."""
+    return int(_library().lkt_gather_rows_depth(M, K))
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,9 @@ from lkpy_tpu_torch.data import from_interactions_df
 from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.ops import als as als_ops
 from lkpy_tpu_torch.ops.als import implicit_otor
-from lkpy_tpu_torch.ops.gather_rows import gather_rows, vector_width
+from lkpy_tpu_torch.ops.gather_gram import copy_width, gather_gram, gather_gram_plain
+from lkpy_tpu_torch.ops.gather_rows import DEPTHS, gather_rows, vector_width
+from lkpy_tpu_torch.ops.gather_rows import _launch as launch_gather
 from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _launch as launch_topk
 from lkpy_tpu_torch.ops.mips_topk import _merge_lists, _merge_lists_plain, choose_splits, mips_topk, mips_topk_plain, range_items
 from lkpy_tpu_torch.ops.sparse import bucket_rows
@@ -457,7 +459,7 @@ def test_explicit_family_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("K", [1, 3, 50, 63, 64, 65, 128, 256])
-@pytest.mark.parametrize("M", [0, 1, 37, 65_536])
+@pytest.mark.parametrize("M", [0, 1, 37, 100, 1_000, 27_000, 65_536])
 def test_gather_rows_kernel_equals_index_select(cuda, K, M):
     rng = np.random.default_rng(K * 7 + M)
     n = 5_000
@@ -471,6 +473,19 @@ def test_gather_rows_kernel_equals_index_select(cuda, K, M):
     torch.cuda.synchronize()
     assert gather_rows.launches == before + (M > 0)
     assert got.shape == (M, K) and torch.equal(got, table.index_select(0, idx.long()))
+    if M:
+        for depth in DEPTHS:  # every compiled number of units a thread, whatever the launch would choose
+            assert torch.equal(launch_gather(table, idx, depth), got)
+
+
+@pytest.mark.parametrize("K", [50, 64, 128])
+@pytest.mark.parametrize("n", [27_000, 131_072])
+def test_gather_rows_sweep_shapes_equal_index_select(cuda, K, n):
+    # the sweep's 4M rows (a 16-byte-unit walk past 2^20 units, four a thread)
+    rng = np.random.default_rng(K + n)
+    table = torch.from_numpy(rng.standard_normal((n, K), dtype=np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n, 1 << 22).astype(np.int32)).to(cuda)
+    assert torch.equal(gather_rows(table, idx), table.index_select(0, idx))
 
 
 @pytest.mark.parametrize("K", [50, 64, 128])
@@ -511,12 +526,112 @@ def test_gather_rows_out_of_range_is_a_device_assertion(cuda):
 
 
 def test_als_gather_runs_the_kernel(cuda):
+    # the normal equations of the bucket solves gather inside the gather-and-Gram kernel
     rng = np.random.default_rng(3)
     right = torch.from_numpy(rng.standard_normal((90, 50), dtype=np.float32)).to(cuda)
     cols = torch.from_numpy(rng.integers(0, 90, (16, 7)).astype(np.int32)).to(cuda)
-    before = gather_rows.launches
-    G = als_ops._gather(right, cols)
-    assert gather_rows.launches == before + 1 and torch.equal(G, right[cols.long()])
+    vals = torch.from_numpy(rng.uniform(1, 5, (16, 7)).astype(np.float32)).to(cuda)
+    mask = torch.ones((16, 7), dtype=torch.bool, device=cuda)
+    before = (gather_rows.launches, gather_gram.launches, spd_solve.launches)
+    x = als_ops.solve_explicit_bucket(cols, vals, mask, right, 0.1)
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, gather_gram.launches, spd_solve.launches) == (before[0], before[1] + 1, before[2] + 1)
+    want = als_ops.solve_explicit_bucket(cols.cpu(), vals.cpu(), mask.cpu(), right.cpu(), 0.1)
+    np.testing.assert_allclose(x.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _gram_inputs(rng, B, P, k, dev, *, holes=False, offset=0, n=5_000, index_dtype=np.int32):
+    base = torch.from_numpy(rng.standard_normal(n * k + offset, dtype=np.float32)).to(dev)
+    right = base[offset : offset + n * k].view(n, k)  # offset floats past an aligned start
+    cols = torch.from_numpy(rng.integers(0, n, (B, P)).astype(index_dtype)).to(dev)
+    vals = torch.from_numpy(rng.uniform(0.5, 40.0, (B, P)).astype(np.float32)).to(dev)
+    if holes:
+        mask = rng.random((B, P)) < 0.6
+    else:
+        mask = np.arange(P)[None, :] < rng.integers(0, P + 1, B)[:, None]  # ragged prefixes, some empty
+    X = torch.from_numpy(rng.standard_normal((64, k), dtype=np.float32)).to(dev)
+    otor = X.T @ X / 64 + 0.1 * torch.eye(k, device=dev)
+    return cols, vals, torch.from_numpy(mask).to(dev), right, otor
+
+
+def _assert_gram_agrees(A, y, A2, y2, cols, vals, mask, right, kw):
+    # A's lower triangle and y: two launches equal to the bit; within 1e-5 of
+    # the largest magnitude of float64 sums; and against the plain version
+    # (the same float32 products summed in another order) within rtol 1e-5
+    # and 1e-6 of the largest magnitude, or the plain version's own distance
+    # from the float64 sums where that is larger (the batched product's
+    # float32 sums over 10^5 entries)
+    k = right.shape[1]
+    li = torch.tril_indices(k, k, device=right.device)
+    Ap, yp = gather_gram_plain(cols, vals, mask, right, **kw)
+    low, low_p = A[:, li[0], li[1]], Ap[:, li[0], li[1]]
+    assert torch.equal(low, A2[:, li[0], li[1]]) and torch.equal(y, y2)
+    G = right.double()[cols.long()]
+    m = mask.double()
+    implicit = "otor" in kw
+    w = vals.double() * m if implicit else m
+    wy = (vals.double() + 1) * m if implicit else vals.double() * m
+    A64 = torch.bmm((G * w[:, :, None]).transpose(1, 2), G)[:, li[0], li[1]]
+    A64 = A64 + (kw["otor"].double()[li[0], li[1]] if implicit else (kw["reg"] * m.sum(1))[:, None] * (li[0] == li[1]).double())
+    y64 = torch.bmm(G.transpose(1, 2), wy[:, :, None])[:, :, 0]
+    for got, plain, want in ((low, low_p, A64), (y, yp, y64)):
+        top = max(float(want.abs().max()), 1e-30)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * top
+        share = max(1e-6, float((plain.double() - want).abs().max()) / top)
+        assert bool(((got - plain).abs() <= 1e-5 * plain.abs() + share * top).all())
+
+
+@pytest.mark.parametrize("mode", ["implicit", "explicit"])
+@pytest.mark.parametrize("k", [1, 50, 64, 128, 256])
+@pytest.mark.parametrize("B,P", [(1, 1), (1, 120), (7, 120), (7, 5000), (1024, 120), (8, 100_000)])
+def test_gather_gram_kernel_matches_plain(cuda, mode, k, B, P):
+    rng = np.random.default_rng(B + P + k)
+    cols, vals, mask, right, otor = _gram_inputs(rng, B, P, k, cuda)
+    kw = dict(otor=otor) if mode == "implicit" else dict(reg=0.1)
+    before = gather_gram.launches
+    A, y = gather_gram(cols, vals, mask, right, **kw)
+    A2, y2 = gather_gram(cols, vals, mask, right, **kw)
+    torch.cuda.synchronize()
+    assert gather_gram.launches == before + 2
+    _assert_gram_agrees(A, y, A2, y2, cols, vals, mask, right, kw)
+
+
+@pytest.mark.parametrize("mode", ["implicit", "explicit"])
+@pytest.mark.parametrize("k,offset,width", [(64, 1, 1), (64, 2, 2), (50, 1, 1), (50, 0, 2), (130, 0, 2), (64, 0, 4)])
+def test_gather_gram_misaligned_tables_and_holes(cuda, mode, k, offset, width):
+    # a table view 4 or 8 bytes past an aligned start takes 4- or 8-byte
+    # copies; a mask with holes (not a prefix) and int64 columns
+    rng = np.random.default_rng(k + offset)
+    cols, vals, mask, right, otor = _gram_inputs(rng, 64, 300, k, cuda, holes=True, offset=offset, index_dtype=np.int64)
+    cols[~mask] = -7  # a masked slot's column is never read
+    assert copy_width(right) == width
+    kw = dict(otor=otor) if mode == "implicit" else dict(reg=0.1)
+    A, y = gather_gram(cols, vals, mask, right, **kw)
+    A2, y2 = gather_gram(cols, vals, mask, right, **kw)
+    torch.cuda.synchronize()
+    _assert_gram_agrees(A, y, A2, y2, cols.clamp_min(0), vals, mask, right, kw)
+
+
+def test_gather_gram_plan_splits_only_small_or_wide_buckets(cuda):
+    from lkpy_tpu_torch.ops.gather_gram import launch_plan
+
+    # the epoch's largest user chunk fills the card; a serving block and one
+    # query have rows too short to be worth a split
+    for B, P in [(30_024, 120), (1_024, 256), (1, 103)]:
+        assert launch_plan(B, P, 64) == (1, 32 * -(-P // 32), 0, 0)
+    for B, P in [(8, 158_240), (3, 5_000), (30_024, 2_100)]:  # few long rows, or rows wider than 2,048 slots
+        S, L, ws_floats, sync_ints = launch_plan(B, P, 64)
+        assert S > 1 and L % 32 == 0 and 256 <= L <= 2_048 and (S - 1) * L < P <= S * L
+        assert ws_floats == B * S * (160 * 16 + 64) and sync_ints == 2 * B
+
+
+def test_gather_gram_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(1)
+    cols, vals, mask, right, otor = _gram_inputs(rng, 4, 8, 16, cuda)
+    with pytest.raises(ValueError):
+        gather_gram(cols, vals, mask, right.T.contiguous().T, otor=otor)  # a column-major table
+    with pytest.raises(ValueError):
+        gather_gram(cols, vals, mask, right.cpu(), otor=otor)  # tensors on two devices
 
 
 def test_quick_measure_model_on_card_matches_cpu(cuda):
@@ -524,11 +639,13 @@ def test_quick_measure_model_on_card_matches_cpu(cuda):
 
     rng = np.random.default_rng(17)
     ds = from_interactions_df(pd.DataFrame({"user_id": rng.integers(0, 400, 9000), "item_id": rng.integers(0, 250, 9000)}))
-    before = (spd_solve_chunked.launches, gather_rows.launches, spd_solve.launches)
+    before = (spd_solve_chunked.launches, gather_gram.launches, spd_solve.launches, gather_rows.launches)
     on_card = quick_measure_model(ImplicitMFScorer(features=16, epochs=3), ds, n_recs=10, rng=5)
-    # B1 and P train; the per-query runner folds each user in on the card (P and B2)
-    assert spd_solve_chunked.launches > before[0] and gather_rows.launches > before[1]
-    assert spd_solve.launches - before[2] == len(on_card.split.test)
+    # B1 and the gather-and-Gram kernel train; the per-query runner folds each
+    # user in on the card (the gather-and-Gram kernel and B2) and gathers the
+    # candidates' rows (P)
+    assert spd_solve_chunked.launches > before[0] and gather_gram.launches > before[1] + len(on_card.split.test)
+    assert spd_solve.launches - before[2] == len(on_card.split.test) == gather_rows.launches - before[3]
     on_cpu = quick_measure_model(ImplicitMFScorer(features=16, epochs=3), ds, n_recs=10, rng=5, device="cpu")
     assert list(on_card.split.test.keys()) == list(on_cpu.split.test.keys())
     np.testing.assert_allclose(on_card.global_metrics().to_numpy(), on_cpu.global_metrics().to_numpy(), rtol=0, atol=2e-3)
@@ -536,8 +653,9 @@ def test_quick_measure_model_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("family", ["implicit", "explicit"])
 def test_per_query_scoring_on_card_matches_cpu(cuda, family):
-    # one query on the card: P gathers the history, B2 solves the fold-in, P
-    # gathers the candidates, and only the scores come back
+    # one query on the card: the gather-and-Gram kernel forms the history's
+    # equations, B2 solves the fold-in, P gathers the candidates, and only
+    # the scores come back
     import copy
 
     from lkpy_tpu_torch.data import ItemList, RecQuery
@@ -549,8 +667,8 @@ def test_per_query_scoring_on_card_matches_cpu(cuda, family):
     items = ItemList(item_ids=ds.items.ids)
     for user in ds.users.ids[:5]:
         query = RecQuery(user_id=user, user_items=ds.interaction_matrix().row_items(user))
-        before = (gather_rows.launches, spd_solve.launches)
+        before = (gather_rows.launches, spd_solve.launches, gather_gram.launches)
         got = on_card(query, items).scores()
-        assert (gather_rows.launches - before[0], spd_solve.launches - before[1]) == (2, 1)
+        assert (gather_rows.launches - before[0], spd_solve.launches - before[1], gather_gram.launches - before[2]) == (1, 1, 1)
         np.testing.assert_allclose(got, scorer(query, items).scores(), rtol=1e-4, atol=1e-4)
     assert on_card.item_embeddings.device.type == "cuda"

@@ -75,13 +75,24 @@ def test_views_and_checks():
 
 
 def test_als_gather_goes_through_gather_rows(monkeypatch):
-    calls = []
+    # the bucket solves' factor gather lies inside the gather-and-Gram
+    # wrapper: one call a bucket with the bucket's columns, and no separate
+    # row gather (the rows never reach device memory on the card)
+    from lkpy_tpu_torch.ops import gather_gram as gram_module
+    from lkpy_tpu_torch.ops import gather_rows as rows_module
 
-    def counting(table, idx):
-        calls.append((tuple(table.shape), tuple(idx.shape)))
+    calls, rows = [], []
+
+    def counting(cols, values, mask, right, **kw):
+        calls.append((tuple(right.shape), tuple(cols.shape)))
+        return gram_module.gather_gram(cols, values, mask, right, **kw)
+
+    def counting_rows(table, idx):
+        rows.append(tuple(idx.shape))
         return gather_rows(table, idx)
 
-    monkeypatch.setattr(torch_als, "gather_rows", counting)
+    monkeypatch.setattr(torch_als, "gather_gram", counting)
+    monkeypatch.setattr(rows_module, "gather_rows", counting_rows)
     rng = np.random.default_rng(2)
     right = torch.from_numpy(rng.standard_normal((40, 8)).astype(np.float32))
     cols = torch.from_numpy(rng.integers(0, 40, (6, 5)).astype(np.int32))
@@ -90,32 +101,38 @@ def test_als_gather_goes_through_gather_rows(monkeypatch):
     x = torch_als.solve_implicit_bucket(cols, conf, mask, right, torch_als.implicit_otor(right, 0.1))
     assert x.shape == (6, 8) and calls == [((40, 8), (6, 5))]
     torch_als.solve_explicit_bucket(cols, conf, mask, right, 0.1)
-    assert len(calls) == 2
+    assert len(calls) == 2 and rows == []
 
 
 @pytest.mark.parametrize("family", ["implicit", "explicit"])
 def test_per_query_scoring_goes_through_gather_rows_and_spd_solve(monkeypatch, family):
-    # one query scores where the tables lie: the fold-in gathers the history
-    # rows and solves a bucket of one, and the candidates' rows are gathered
+    # one query scores where the tables lie: the fold-in forms the history's
+    # normal equations (gather and Gram in one) and solves a bucket of one,
+    # and the candidates' rows are gathered
     import pandas as pd
 
     from lkpy_tpu_torch.data import ItemList, RecQuery, from_interactions_df
     from lkpy_tpu_torch.models import als as als_models
+    from lkpy_tpu_torch.ops import gather_gram as gram_module
     from lkpy_tpu_torch.ops import spd_solve as spd_module
     from lkpy_tpu_torch.training import TrainingOptions
 
-    gathers, solves = [], []
+    gathers, grams, solves = [], [], []
 
     def counting_gather(table, idx):
         gathers.append(tuple(idx.shape))
         return gather_rows(table, idx)
 
+    def counting_gram(cols, values, mask, right, **kw):
+        grams.append(tuple(cols.shape))
+        return gram_module.gather_gram(cols, values, mask, right, **kw)
+
     def counting_solve(A, y):
         solves.append(tuple(y.shape))
         return spd_module.spd_solve(A, y)
 
-    monkeypatch.setattr(torch_als, "gather_rows", counting_gather)
     monkeypatch.setattr(als_models, "gather_rows", counting_gather)
+    monkeypatch.setattr(torch_als, "gather_gram", counting_gram)
     monkeypatch.setattr(torch_als, "spd_solve", counting_solve)
     rng = np.random.default_rng(9)
     u, i = rng.integers(0, 30, 600), rng.integers(0, 25, 600)
@@ -127,7 +144,8 @@ def test_per_query_scoring_goes_through_gather_rows_and_spd_solve(monkeypatch, f
     scorer.train(ds, TrainingOptions(rng=1, device="cpu"))
     hist = ds.interaction_matrix().row_items(ds.users.ids[0])
     gathers.clear()
+    grams.clear()
     out = scorer(RecQuery(user_id=ds.users.ids[0], user_items=hist), ItemList(item_ids=np.array([3, 4, 999])))
-    assert solves == [(1, 8)] and gathers == [(1, len(hist)), (2,)]
+    assert solves == [(1, 8)] and grams == [(1, len(hist))] and gathers == [(2,)]
     scores = out.scores()
     assert np.isfinite(scores[:2]).all() and np.isnan(scores[2])
