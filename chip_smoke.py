@@ -64,7 +64,17 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      the same pipeline through the device route, then of
      ``BiasedMFScorer`` with ``predicts_ratings=True`` on bench.py's
      synthetic ratings, 2 % of the users (RMSE against the bias model's on
-     the same split).
+     the same split);
+   - the item-kNN similarity build of bench.py's section 4
+     (``normalize_item_matrix`` + ``similarity_topk(normed, 64,
+     user_major=ui)``, twice, then once on the synthetic ratings), each
+     table held against float64 cosines on 256 items;
+   - the item-item family through ``Pipeline.train`` and the per-query
+     runner of ``batch.recommend``: item kNN (1,000 test users, NDCG@10),
+     user kNN (200), EASE over all 27,000 items (200, its inverse held to
+     a backward error), lists against float64 oracles over the port's own
+     table or weights, and the explicit item kNN's held-out RMSE beside the
+     bias model's; these paths launch none of the five kernels.
 4. Prints one JSON line describing each kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -226,6 +236,28 @@ EVAL_METRIC_TOL = 1e-6
 #: 0.7424 there (BENCH_r05.json)
 RMSE_MAX = 0.65
 RMSE_MIN_GAIN = 0.08
+
+#: the item-item family at bench.py's width (its section 4: 27k items, k=64)
+KNN_K = 64
+#: bench.py's CPU baseline of the same build (bench.py:48, cpp/knn_cpu_baseline.cpp, 2 threads)
+KNN_CPU_BASELINE_S = 15.0
+#: items whose rows of the neighbour table are held against float64 cosines
+KNN_ORACLE_ITEMS = 256
+#: a returned sim within this of its float64 cosine, and no lower than the
+#: float64 k-th sim less this
+KNN_SIM_TOL = 1e-5
+#: test users through the per-query runner: item kNN, user kNN, EASE
+KNN_USERS = 1_000
+UKNN_USERS = 200
+EASE_USERS = 200
+#: of those, lists held against a float64 oracle
+KNN_ORACLE_USERS = 20
+UKNN_ORACLE_USERS = 5
+#: test users whose held-out ratings the explicit item kNN predicts
+KNN_PREDICT_USERS = 500
+#: columns of EASE's inverse held to a backward error, and its bound
+EASE_COLUMNS = 64
+EASE_BACKWARD_MAX = 1e-4
 
 
 def log(*args):
@@ -1666,6 +1698,7 @@ def explicit_phase(dev, split: dict, rng: np.random.Generator) -> tuple[dict, di
         device_recommend(scorer, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
         times.append(time.perf_counter() - ts)
     log(f"explicit serving: {SERVE_USERS} users per call, calls {times} s -> queries/s {[SERVE_USERS / t for t in times]}")
+    split.update(explicit_ds=ds, ratings=ratings, test_r=test_r)
     return launches, served
 
 
@@ -1993,6 +2026,361 @@ def evaluation_phase(dev, ds, rng: np.random.Generator):
     return trained, served, explicit
 
 
+def knn_table_check(label: str, table, normed, min_sim: float, rng: np.random.Generator, dev) -> dict:
+    """Hold ``KNN_ORACLE_ITEMS`` sampled rows of a neighbour table against
+    float64 cosines of the normalized item matrix (its rows times its
+    transpose, by SciPy): every returned sim within ``KNN_SIM_TOL`` of its
+    float64 cosine and no lower than the float64 k-th sim less that, no
+    self-neighbour, rows descending, and padding only where fewer than k
+    cosines reach ``min_sim``."""
+    import scipy.sparse as sps
+
+    if table.sims.device.type != dev.type or table.indices.device.type != dev.type:
+        raise AssertionError(f"{label}: the neighbour table must lie on {dev} ({table.sims.device})")
+    k = table.k
+    A = sps.csr_array((normed.values.astype(np.float64), normed.colind, normed.rowptr), shape=normed.shape)
+    rows = np.sort(rng.choice(normed.nrows, KNN_ORACLE_ITEMS, replace=False))
+    S = (A[rows] @ A.T).toarray()
+    S[np.arange(len(rows)), rows] = -np.inf  # the item itself is no neighbour
+    kth = np.maximum(-np.partition(-S, k - 1, axis=1)[:, k - 1], 0.0)
+    sims = table.sims[rows].double().cpu().numpy()
+    idx = table.indices[rows].long().cpu().numpy()
+    real = sims > 0
+    f64 = np.take_along_axis(S, idx, axis=1)
+    err = float(np.abs(sims - f64)[real].max())
+    margin = float((f64 - kth[:, None])[real].min())
+    n_real = real.sum(axis=1)
+    n_lo = np.minimum((S >= min_sim + KNN_SIM_TOL).sum(axis=1), k)
+    n_hi = np.minimum((S >= min_sim - KNN_SIM_TOL).sum(axis=1), k)
+    if (
+        err > KNN_SIM_TOL
+        or margin < -KNN_SIM_TOL
+        or (real & (idx == rows[:, None])).any()
+        or (np.diff(sims, axis=1) > 0).any()
+        or (real[:, 1:] & ~real[:, :-1]).any()
+        or (n_real < n_lo).any()
+        or (n_real > n_hi).any()
+    ):
+        raise AssertionError(f"{label}: the table disagrees with float64 cosines (max error {err}, k-th margin {margin})")
+    out = dict(items=len(rows), max_abs_err=err, kth_margin=margin, padded_rows=int((n_real < k).sum()))
+    log(f"{label} vs float64 cosines on {len(rows)} items: {out}")
+    return out
+
+
+def knn_build_phase(dev, split: dict) -> dict:
+    """bench.py's section 4 as bench.py runs it: ``normalize_item_matrix`` +
+    ``similarity_topk(normed, 64, user_major=ui)`` on the training split's
+    constant-confidence matrix, twice (the first primes the card), then the
+    explicit build on the synthetic ratings once; each table held against
+    float64 cosines.  Returns the launches of the builds."""
+    from lkpy_tpu_torch.ops.knn import normalize_item_matrix, similarity_topk
+
+    # bench.py's ui (the training split, confidence 40) and iu, from the datasets' own CSR (the same structure
+    # as bench.py's CSR.from_coo of the split), and the rated pair
+    t0 = time.perf_counter()
+    ui = split["ds"].interaction_matrix().csr(None)
+    ui = ui.with_values(np.full(ui.nnz, 40.0, dtype=np.float32))
+    ui_e = split["explicit_ds"].interaction_matrix().csr("rating")
+    if ui.shape != (N_USERS, N_ITEMS) or ui.nnz != len(split["tr_u"]) or not np.array_equal(ui.colind, ui_e.colind):
+        raise AssertionError(f"the kNN build needs bench.py's training matrix ({ui.shape}, {ui.nnz} entries)")
+    iu, iu_e = ui.transpose(), ui_e.transpose()
+    log(f"kNN build inputs: bench.py's ui and iu, and the rated pair ({time.perf_counter() - t0:.1f}s on the host)")
+    flop = 2.0 * N_USERS * N_ITEMS**2
+    lens = ui.row_lengths().astype(np.int64)
+    log(f"kNN Gram work: dense user chunks {flop:.4e} FLOP; the co-occurrences themselves, Σ len_u², {float(np.sum(lens * lens)):.4e} multiply-adds")
+    out = {}
+
+    def build(label: str, iu_csr, ui_csr, explicit: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tm: dict = {}
+        t = time.perf_counter()
+        normed, _ = normalize_item_matrix(iu_csr, explicit=explicit)
+        norm_s = time.perf_counter() - t
+        table = similarity_topk(normed, KNN_K, user_major=ui_csr, timings=tm)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        if "gram_s" not in tm:
+            raise AssertionError(f"{label}: bench.py's shape must take the Gram path")
+        # S (n_items² float32) and one dense user chunk were alive on the card together
+        if torch.cuda.max_memory_allocated() < 4 * N_ITEMS * (N_ITEMS + tm["user_chunk"]):
+            raise AssertionError(f"{label}: the Gram and its user chunk must lie on the card")
+        log(
+            f"{label}: {total:.4f}s (normalize {norm_s:.4f}s, upload and transpose {tm['prep_s']:.4f}s, Gram {tm['gram_s']:.4f}s "
+            f"= {flop / tm['gram_s'] / 1e12:.2f} TFLOP/s against the f32 peak's {flop / PEAK_F32_FLOP_PER_S:.3f}s, top-k {tm['topk_s']:.4f}s); "
+            f"{tm['chunks']} user chunks of {tm['user_chunk']}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        )
+        out[label] = dict(total_s=total, normalize_s=norm_s, **tm, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        return normed, table
+
+    zero_counts()
+    build("item-kNN build 1 (primes the card)", iu, ui, False)
+    normed, table = build("item-kNN build 2", iu, ui, False)
+    launches = read_counts()
+    steady = out["item-kNN build 2"]["total_s"]
+    log(
+        f"item-kNN similarity build (27k items, k={KNN_K}): {steady:.4f}s; bench.py's CPU baseline constant "
+        f"{KNN_CPU_BASELINE_S}s (a CPU figure: cpp/knn_cpu_baseline.cpp on 2 threads, bench.py:48) -> "
+        f"{KNN_CPU_BASELINE_S / steady:.2f}x; launches {launches}"
+    )
+    out["implicit_check"] = knn_table_check("item-kNN table", table, normed, 1e-6, np.random.default_rng(7), dev)
+    del table
+    zero_counts()
+    normed, table = build("explicit item-kNN build", iu_e, ui_e, True)
+    explicit_launches = read_counts()
+    out["explicit_check"] = knn_table_check("explicit item-kNN table", table, normed, 1e-6, np.random.default_rng(8), dev)
+    for name, n in {**launches, **explicit_launches}.items():
+        if n:
+            raise AssertionError(f"the kNN builds launched {name}: {launches}, {explicit_launches}")
+    split["knn_build"] = out
+    return {"knn_build": launches, "knn_build_explicit": explicit_launches}
+
+
+def ranked(ids: np.ndarray, scores: np.ndarray, n: int):
+    """The top ``n`` of float64 ``scores`` (NaN unscored) as an ItemList."""
+    from lkpy_tpu_torch.data import ItemList
+
+    order = np.argsort(-np.where(np.isnan(scores), -np.inf, scores), kind="stable")[:n]
+    order = order[~np.isnan(scores[order])]
+    return ItemList(item_ids=ids[order], scores=scores[order])
+
+
+def top_sums(targets: np.ndarray, weights: np.ndarray, n: int, max_nbrs: int) -> np.ndarray:
+    """float64 sums of each target's ``max_nbrs`` largest positive weights
+    (NaN where it has none): the implicit kNN scoring formula."""
+    keep = weights > 0
+    targets, weights = targets[keep], weights[keep].astype(np.float64)
+    order = np.lexsort((-weights, targets))
+    targets, weights = targets[order], weights[order]
+    starts = np.flatnonzero(np.r_[True, np.diff(targets) != 0])
+    rank = np.arange(len(targets)) - np.repeat(starts, np.diff(np.r_[starts, len(targets)]))
+    top = rank < max_nbrs
+    scores = np.bincount(targets[top], weights=weights[top], minlength=n)
+    scores[np.bincount(targets[top], minlength=n) == 0] = np.nan
+    return scores
+
+
+def item_item_phase(dev, split: dict) -> dict:
+    """The user's path through the item-item family, each scorer trained by
+    ``Pipeline.train`` on bench.py's training split and served through the
+    per-query runner of ``lkpy_tpu_torch.batch.recommend``: item kNN
+    (implicit, ``nbr_table_cap`` 512) for 1,000 test users with NDCG@10, user
+    kNN for 200, EASE over all 27,000 items for 200 (its inverse held to a
+    backward error), each with lists held against a float64 oracle over the
+    port's own table or weights; then the explicit item kNN's predictions
+    of 500 test users' held-out ratings against the bias model's and the
+    global mean's.  Returns the launches of each path."""
+    import scipy.sparse as sps
+
+    import lkpy_tpu_torch
+    from lkpy_tpu_torch.batch import predict, recommend
+    from lkpy_tpu_torch.data import ItemList, ItemListCollection
+    from lkpy_tpu_torch.models import BiasScorer, EASEScorer, ItemKNNScorer, UserKNNScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
+    csr = ds.interaction_matrix().csr(None)
+    iu = csr.transpose()
+    item_ids = np.asarray(ds.items.ids)
+    test_users = np.unique(test_u)
+    paths: dict = {}
+
+    def train(label: str, pipe, data) -> float:
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.train(data, TrainingOptions(rng=42))
+        torch.cuda.synchronize()
+        paths[f"{label}_train"] = read_counts()
+        return time.perf_counter() - t
+
+    def serve(label: str, pipe, users):
+        zero_counts()
+        t = time.perf_counter()
+        recs = recommend(pipe, users, n=10)
+        took = time.perf_counter() - t
+        paths[f"{label}_recommend"] = read_counts()
+        if len(recs) != len(users):
+            raise AssertionError(f"{label}: {len(recs)} lists for {len(users)} users")
+        check_lists(recs, csr, ds.users, 10)
+        return recs, took
+
+    def profile_query(label: str, pipe, user, calls: int = 5) -> dict:
+        """The scorer's share of a query (the user's history, every item a
+        candidate): 10 calls on the host's clock, then ``calls`` profiled
+        together (a profile of one short call can come back without device
+        activities); a profile without any reads as not measured."""
+        query = pipe.node("history-lookup").component(user)
+        scorer = pipe.node("scorer").component
+        cands = ItemList(item_ids=item_ids)
+        scorer(query, cands)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            scorer(query, cands)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 100
+        busy, idle, _ = profile_device(
+            lambda: [scorer(query, cands) for _ in range(calls)], wall_ms * calls, f"{calls} {label} scorer calls", top=5
+        )
+        if busy == 0:
+            log(f"  {label}: the profile holds no device activity; its device time is not measured")
+            return dict(scorer_ms=wall_ms, device_busy_ms=None, idle_share=None)
+        return dict(scorer_ms=wall_ms, device_busy_ms=busy / calls, idle_share=idle)
+
+    def hold(label: str, recs, users, oracle) -> None:
+        for u in users:
+            want = oracle(csr.row_cols(ds.users.number(u)), ds.users.number(u))
+            if not same_ids_at_clear_gaps(recs.lookup(u), want):
+                raise AssertionError(f"{label}, user {u}: {list(recs.lookup(u).ids())} differs from the float64 oracle {list(want.ids())}")
+        log(f"{label}: {len(users)} lists equal the float64 oracle at clear gaps")
+
+    # item kNN, implicit, as the user builds it
+    iknn = ItemKNNScorer(feedback="implicit")
+    pipe = lkpy_tpu_torch.topn_pipeline(iknn, n=10)
+    train_s = train("item_knn", pipe, ds)
+    table = iknn.sim_table
+    if table.sims.device.type != dev.type or table.k != min(iknn.config.nbr_table_cap, N_ITEMS - 1):
+        raise AssertionError(f"the trained neighbour table must lie on {dev} at k=512 ({table.sims.device}, k={table.k})")
+    users = test_users[:KNN_USERS]
+    recs, serve_s = serve("item_knn", pipe, users)
+    nd = ndcg10(list(users), [list(recs.lookup(u).ids()) for u in users], test_u, test_i)
+    log(
+        f"item kNN (implicit, k={table.k}, max_nbrs {iknn.config.max_nbrs}): Pipeline.train {train_s:.3f}s, {int(iknn.item_counts.sum())} pairs; "
+        f"recommend of {len(users)} users {serve_s:.3f}s = {serve_s / len(users) * 1e3:.3f} ms a query; NDCG@10 {nd:.4f}"
+    )
+
+    def iknn_oracle(hist, _unum):
+        idx = table.indices[torch.as_tensor(hist, device=table.indices.device)].long().cpu().numpy()
+        sims = table.sims[torch.as_tensor(hist, device=table.sims.device)].double().cpu().numpy()
+        scores = top_sums(idx.ravel(), sims.ravel(), N_ITEMS, iknn.config.max_nbrs)
+        scores[hist] = np.nan
+        return ranked(item_ids, scores, 10)
+
+    hold("item kNN", recs, users[:KNN_ORACLE_USERS], iknn_oracle)
+    item_knn = dict(train_s=train_s, ms_a_query=serve_s / len(users) * 1e3, ndcg10=nd, users=len(users))
+    item_knn.update(profile_query("item kNN", pipe, users[0]))
+    del pipe, iknn, table
+
+    # user kNN, implicit
+    uknn = UserKNNScorer(feedback="implicit")
+    pipe = lkpy_tpu_torch.topn_pipeline(uknn, n=10)
+    train_s = train("user_knn", pipe, ds)
+    if uknn._nv_vals.device.type != dev.type or any(b.cols.device.type != dev.type for b in uknn._iu_buckets):
+        raise AssertionError(f"the user vectors and item buckets must lie on {dev}")
+    users = test_users[:UKNN_USERS]
+    recs, serve_s = serve("user_knn", pipe, users)
+    log(
+        f"user kNN (implicit, max_nbrs {uknn.config.max_nbrs}): Pipeline.train {train_s:.3f}s, {len(uknn._iu_buckets)} item buckets; "
+        f"recommend of {len(users)} users {serve_s:.3f}s = {serve_s / len(users) * 1e3:.3f} ms a query"
+    )
+    u_lens = csr.row_lengths().astype(np.float64)
+    i_rows = np.repeat(np.arange(N_ITEMS), iu.row_lengths())
+
+    def uknn_oracle(hist, unum):
+        overlap = np.bincount(np.concatenate([iu.row_cols(i) for i in hist]), minlength=N_USERS).astype(np.float64)
+        sims = overlap / np.sqrt(len(hist) * np.maximum(u_lens, 1))
+        sims[unum] = 0.0
+        sims[sims < uknn.config.min_sim] = 0.0
+        scores = top_sums(i_rows, sims[iu.colind], N_ITEMS, uknn.config.max_nbrs)
+        scores[hist] = np.nan
+        return ranked(item_ids, scores, 10)
+
+    hold("user kNN", recs, users[:UKNN_ORACLE_USERS], uknn_oracle)
+    user_knn = dict(train_s=train_s, ms_a_query=serve_s / len(users) * 1e3, users=len(users))
+    user_knn.update(profile_query("user kNN", pipe, users[0]))
+    del pipe, uknn
+
+    # EASE over all items
+    ease = EASEScorer()
+    pipe = lkpy_tpu_torch.topn_pipeline(ease, n=10)
+    torch.cuda.reset_peak_memory_stats()
+    train_s = train("ease", pipe, ds)
+    W = ease.weights
+    if W.device.type != dev.type or W.shape != (N_ITEMS, N_ITEMS) or not torch.isfinite(W).all():
+        raise AssertionError(f"EASE's weights must be finite and on {dev} ({W.device}, {tuple(W.shape)})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak * 2**30 < 3 * 4 * N_ITEMS**2:  # the factor, the identity and P, alive together on the card
+        raise AssertionError(f"EASE's inverse must be formed on the card (peak {peak:.2f} GiB)")
+    users = test_users[:EASE_USERS]
+    recs, serve_s = serve("ease", pipe, users)
+    # backward error of the inverse's columns: B's column j is −P[:, j]/P[j, j], so P[:, j] is (e_j − b_j)
+    # scaled so that row j of (G + λI) P[:, j] is 1, with G = XᵀX from the binary matrix X on the host
+    lam = ease.config.regularization
+    X = sps.csr_array((np.ones(csr.nnz), csr.colind, csr.rowptr), shape=csr.shape)
+    cols = np.sort(np.random.default_rng(9).choice(N_ITEMS, EASE_COLUMNS, replace=False))
+    V = -W[:, torch.as_tensor(cols, device=W.device)].double().cpu().numpy()
+    V[cols, np.arange(len(cols))] = 1.0
+    R = X.T @ (X @ V) + lam * V
+    r_jj = R[cols, np.arange(len(cols))]
+    E = np.zeros_like(R)
+    E[cols, np.arange(len(cols))] = 1.0
+    norm_a = float((X.T @ (X @ np.ones(N_ITEMS))).max() + lam)
+    backward = np.abs(R / r_jj - E).max(axis=0) / (norm_a * np.abs(V / r_jj).max(axis=0))
+    log(
+        f"EASE (λ={lam}, {N_ITEMS} items): Pipeline.train {train_s:.3f}s, peak device memory {peak:.2f} GiB; backward error of "
+        f"{len(cols)} columns of (G+λI)⁻¹: max {backward.max():.3e} (bound {EASE_BACKWARD_MAX}); recommend of {len(users)} users "
+        f"{serve_s:.3f}s = {serve_s / len(users) * 1e3:.3f} ms a query"
+    )
+    if not (np.isfinite(backward).all() and backward.max() <= EASE_BACKWARD_MAX):
+        raise AssertionError(f"EASE's inverse misses its backward-error bound: {backward.max()}")
+
+    def ease_oracle(hist, _unum):
+        scores = W[torch.as_tensor(hist, device=W.device)].double().sum(dim=0).cpu().numpy()
+        scores[hist] = np.nan
+        return ranked(item_ids, scores, 10)
+
+    hold("EASE", recs, users[:KNN_ORACLE_USERS], ease_oracle)
+    ease_out = dict(train_s=train_s, peak_gib=peak, backward_max=float(backward.max()), ms_a_query=serve_s / len(users) * 1e3)
+    ease_out.update(profile_query("EASE", pipe, users[0]))
+    del pipe, ease, W
+
+    # explicit item kNN predicting held-out ratings, beside the bias model and the global mean
+    eds, ratings, test_r = split["explicit_ds"], split["ratings"], split["test_r"]
+    pipe = lkpy_tpu_torch.predict_pipeline(ItemKNNScorer())
+    train_s = train("item_knn_explicit", pipe, eds)
+    bias = lkpy_tpu_torch.predict_pipeline(BiasScorer(damping=5.0), fallback=False)
+    bias.train(eds, TrainingOptions(rng=42))
+    sel = np.flatnonzero(np.isin(test_u, test_users[:KNN_PREDICT_USERS]))
+    sel = sel[np.argsort(test_u[sel], kind="stable")]
+    groups = np.split(sel, np.flatnonzero(np.diff(test_u[sel])) + 1)
+    pairs = ItemListCollection.from_dict({int(test_u[g[0]]): ItemList(item_ids=test_i[g]) for g in groups})
+    zero_counts()
+    t = time.perf_counter()
+    preds = predict(pipe, pairs)
+    predict_s = time.perf_counter() - t
+    paths["item_knn_predict"] = read_counts()
+    base = predict(bias, pairs)
+
+    def aligned(out) -> np.ndarray:
+        vals = []
+        for g in groups:
+            il = out.lookup(int(test_u[g[0]]))
+            if not np.array_equal(np.asarray(il.ids()), test_i[g]):
+                raise AssertionError("predictions must come back for the asked items, in order")
+            vals.append(il.scores())
+        return np.concatenate(vals).astype(np.float64)
+
+    p_knn, p_bias, truth = aligned(preds), aligned(base), test_r[sel].astype(np.float64)
+    rmse = float(np.sqrt(np.mean((p_knn - truth) ** 2)))
+    rmse_bias = float(np.sqrt(np.mean((p_bias - truth) ** 2)))
+    rmse_mean = float(np.sqrt(np.mean((float(np.mean(ratings)) - truth) ** 2)))
+    log(
+        f"explicit item kNN (k=512, max_nbrs 20): Pipeline.train {train_s:.3f}s; predict of {len(sel)} held-out ratings of "
+        f"{len(groups)} users {predict_s:.3f}s; RMSE {rmse:.4f} (bias model {rmse_bias:.4f}, global mean {rmse_mean:.4f})"
+    )
+    if not (np.isfinite(p_knn).all() and rmse < rmse_mean):
+        raise AssertionError(f"explicit item kNN RMSE {rmse} must be finite and below the global mean's {rmse_mean}")
+    for path, counts in paths.items():
+        if any(counts.values()):
+            raise AssertionError(f"the item-item path {path} launched a kernel: {counts}")
+    split["item_item"] = dict(
+        item_knn=item_knn, user_knn=user_knn, ease=ease_out,
+        item_knn_explicit=dict(train_s=train_s, rmse=rmse, rmse_bias=rmse_bias, rmse_mean=rmse_mean, ratings=len(sel)),
+    )  # fmt: skip
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2077,6 +2465,8 @@ def main() -> int:
     explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
     pipeline_training, pipeline_serving, pipeline_per_query = pipeline_phase(dev, split)
     evaluation_training, evaluation_serving, explicit_evaluation = evaluation_phase(dev, full, split["rng"])
+    knn_builds = knn_build_phase(dev, split)
+    item_item = item_item_phase(dev, split)
 
     paths = {
         "serving": serving,
@@ -2091,6 +2481,8 @@ def main() -> int:
         "evaluation_training": evaluation_training,
         "evaluation_serving": evaluation_serving,
         "explicit_evaluation": explicit_evaluation,
+        **knn_builds,
+        **item_item,
     }
     for path, kernel in [
         ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_training", "gather_gram"),

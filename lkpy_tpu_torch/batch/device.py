@@ -34,11 +34,16 @@ _DEV_CACHE_MAX = 32
 
 
 def invalidate_device_cache() -> None:
-    """Drop all cached device copies of host arrays.
+    """Drop all cached device copies of host arrays, and every registered
+    residency cache (the kNN build's user-major structure).
 
     Call after mutating a scorer's tables or a training matrix IN PLACE
-    between serving calls: the cache assumes host arrays do not change."""
+    between serving calls: the caches assume host arrays do not change."""
+    import lkpy_tpu_torch.ops.knn  # noqa: F401 — registers its cache
+    from lkpy_tpu_torch.utils.residency import invalidate_all_residency
+
     _dev_cache.clear()
+    invalidate_all_residency()
 
 
 def _cached_device(arr, device: torch.device) -> torch.Tensor:

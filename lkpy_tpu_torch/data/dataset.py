@@ -5,14 +5,17 @@ Port of the parts of ``lkpy_tpu/data/dataset.py`` that serving and the
 pipeline need (reference: src/lenskit/data/_dataset.py:63,
 _relationships.py:40,410): entity vocabularies, relationship tables, and the
 de-duplicated :class:`MatrixRelationshipSet` with its CSR, vocabularies, row
-access and per-user and per-item statistics, and the interaction table that
-splitting and evaluation read.
+access and per-user and per-item statistics, the interaction table that
+splitting and evaluation read, and the SciPy export.
 """
 
 from __future__ import annotations
 
+from typing import Literal
+
 import numpy as np
 import pandas as pd
+import scipy.sparse as sps
 
 from lkpy_tpu_torch.data.items import ItemList
 from lkpy_tpu_torch.data.matrix import CSR
@@ -125,6 +128,25 @@ class MatrixRelationshipSet(RelationshipSet):
         if f is None:
             raise KeyError(f"no attribute {attribute!r} on relationship {self.name!r}")
         return self._csr.with_values(f.astype(np.float32))
+
+    def scipy(
+        self,
+        attribute: str | None = None,
+        *,
+        layout: Literal["csr", "coo"] = "csr",
+        legacy: bool = False,
+    ) -> sps.csr_array | sps.coo_array:
+        """SciPy export (reference: _relationships.py:576); ``legacy`` is
+        accepted and changes nothing, as in the JAX package."""
+        if attribute is None and self._csr.values is not None:
+            attribute = "rating"
+        if attribute is None or (attribute == "rating" and self._csr.values is None):
+            mat = self._csr.to_scipy(structural=True)
+        else:
+            mat = self.csr(attribute).to_scipy()
+        if layout == "coo":
+            return mat.tocoo()
+        return mat
 
     def row_items(self, id=None, *, number: int | None = None) -> ItemList | None:
         """One row as an ItemList."""

@@ -290,3 +290,20 @@ class ItemList:
 
     def __repr__(self) -> str:
         return f"<ItemList of {self._len} items{' (ordered)' if self.ordered else ''}>"
+
+    def __getstate__(self):
+        return {
+            "ids": self._ids,
+            "nums": self._nums,
+            "vocab": self._vocab,
+            "ordered": self.ordered,
+            "fields": self._fields,
+        }
+
+    def __setstate__(self, state):
+        self._ids = state["ids"]
+        self._nums = state["nums"]
+        self._vocab = state["vocab"]
+        self.ordered = state["ordered"]
+        self._fields = state["fields"]
+        self._len = len(self._ids) if self._ids is not None else len(self._nums)

@@ -3,8 +3,9 @@ Sparse matrix structures (host side).
 
 Port of ``lkpy_tpu/data/matrix.py`` (reference: src/lenskit/data/matrix.py
 ``CSRStructure``/``COOStructure``): plain NumPy CSR/COO structs, assembled
-with NumPy alone.  The serving path uploads the CSR's row pointers and
-column indices to the device once and gathers histories there.
+with NumPy alone, and exchanged with SciPy (``from_scipy``, ``to_scipy``).
+The serving path uploads the CSR's row pointers and column indices to the
+device once and gathers histories there.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
+import scipy.sparse as sps
 
 __all__ = ["CSR", "COO"]
 
@@ -88,6 +90,23 @@ class CSR:
         vals = None if values is None else np.asarray(values, dtype=np.float32)[order]
         flds = {n: np.asarray(v)[order] for n, v in (fields or {}).items()}
         return cls(rowptr, colind, vals, shape, flds)
+
+    @classmethod
+    def from_scipy(cls, mat: sps.spmatrix) -> "CSR":
+        m = sps.csr_array(mat)
+        m.sort_indices()
+        return cls(
+            m.indptr.astype(np.int64),
+            m.indices.astype(np.int32),
+            m.data.astype(np.float32),
+            m.shape,
+        )
+
+    def to_scipy(self, *, structural: bool = False) -> sps.csr_array:
+        vals = self.values
+        if structural or vals is None:
+            vals = np.ones(self.nnz, dtype=np.float32)
+        return sps.csr_array((vals, self.colind.astype(np.int64), self.rowptr), shape=self.shape)
 
     def transpose(self) -> "CSR":
         """CSC-style transpose."""

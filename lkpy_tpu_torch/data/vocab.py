@@ -143,3 +143,16 @@ class Vocabulary:
 
     def __repr__(self) -> str:
         return f"<Vocabulary {self.name or '?'} [{len(self)} IDs]>"
+
+    def __getstate__(self):
+        return {"name": self.name, "ids": self._ids, "order": self._order}
+
+    def __setstate__(self, state):
+        self.name = state["name"]
+        self._ids = state["ids"]
+        self._order = state["order"]
+        if self._order is None:
+            self._sorted_ids = self._ids
+        else:
+            self._sorted_ids = self._ids[self._order]
+        self._hash = None

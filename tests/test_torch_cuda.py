@@ -672,3 +672,93 @@ def test_per_query_scoring_on_card_matches_cpu(cuda, family):
         assert (gather_rows.launches - before[0], spd_solve.launches - before[1], gather_gram.launches - before[2]) == (1, 1, 1)
         np.testing.assert_allclose(got, scorer(query, items).scores(), rtol=1e-4, atol=1e-4)
     assert on_card.item_embeddings.device.type == "cuda"
+
+
+def _item_user_matrix(rng, n_items=300, n_users=2_500, density=0.02):
+    """Items × users ratings in [0.5, 5], a few items and users empty."""
+    import scipy.sparse as sps
+
+    m = sps.random(n_items, n_users, density=density, random_state=int(rng.integers(1 << 30)), format="csr", dtype=np.float32)
+    m.data = (rng.integers(1, 11, size=m.nnz) / 2.0).astype(np.float32)
+    m = m.tolil()
+    m[n_items // 2 : n_items // 2 + 5, :] = 0
+    m[:, :7] = 0
+    m = m.tocsr()
+    m.eliminate_zeros()
+    return m
+
+
+def _assert_knn_tables_agree(got, want, tol=1e-5):
+    gs, gi = got.sims.cpu().numpy(), got.indices.cpu().numpy()
+    ws, wi = want.sims.cpu().numpy(), want.indices.cpu().numpy()
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=tol)
+    gap_prev = np.concatenate([np.full((ws.shape[0], 1), np.inf), -np.diff(ws, axis=1)], axis=1)
+    gap_next = np.concatenate([-np.diff(ws, axis=1), np.zeros((ws.shape[0], 1))], axis=1)
+    clear = (ws > tol) & (gap_prev > tol) & (gap_next > tol)
+    assert clear.any()
+    np.testing.assert_array_equal(gi[clear], wi[clear])
+
+
+@pytest.mark.parametrize("path", ["dense", "gram", "gram_user_major", "gram_bf16"])
+@pytest.mark.parametrize("explicit", [True, False])
+def test_knn_build_on_card_matches_cpu(cuda, path, explicit):
+    from lkpy_tpu_torch.data.matrix import CSR
+    from lkpy_tpu_torch.ops.knn import normalize_item_matrix, similarity_topk
+
+    iu = CSR.from_scipy(_item_user_matrix(np.random.default_rng(31)))
+    normed, _ = normalize_item_matrix(iu, explicit=explicit)
+    kw = {} if path == "dense" else {"max_dense_bytes": 20_000}  # 1,024 users a chunk: 3 chunks
+    if path == "gram_user_major":
+        kw["user_major"] = iu.transpose()
+    if path == "gram_bf16":
+        kw["bf16"] = True  # on the card torch.mm(bf16, bf16, out_dtype=float32); on the CPU exact products
+    timings = {}
+    got = similarity_topk(normed, 40, tile=128, timings=timings, **kw)
+    want = similarity_topk(normed, 40, tile=128, device="cpu", **kw)
+    assert got.sims.device.type == got.indices.device.type == "cuda"
+    assert (timings["chunks"] == 3) if path != "dense" else not timings
+    _assert_knn_tables_agree(got, want)
+
+
+def test_cooccurrence_gram_on_card_equals_scipy(cuda):
+    from lkpy_tpu_torch.data.matrix import CSR
+    from lkpy_tpu_torch.ops.knn import cooccurrence_gram
+
+    ui = _item_user_matrix(np.random.default_rng(32)).T.tocsr()
+    X = ui.copy()
+    X.data[:] = 1.0
+    want = np.asarray((X.T @ X).todense(), dtype=np.float32)
+    for budget in (4 << 30, 20_000):
+        got = cooccurrence_gram(CSR.from_scipy(ui), max_dense_bytes=budget)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["item_explicit", "item_implicit", "user_explicit", "user_implicit", "ease"])
+def test_item_item_scorers_train_on_card_by_default(cuda, kind):
+    from lkpy_tpu_torch.data import ItemList, RecQuery
+    from lkpy_tpu_torch.models import EASEScorer, ItemKNNScorer, UserKNNScorer
+
+    ds = _ratings_dataset(np.random.default_rng(33))
+
+    def make():
+        if kind == "ease":
+            return EASEScorer()
+        cls = ItemKNNScorer if kind.startswith("item") else UserKNNScorer
+        return cls(feedback=kind.split("_")[1], max_nbrs=10)
+
+    on_card, on_cpu = make(), make()
+    on_card.train(ds, TrainingOptions())
+    on_cpu.train(ds, TrainingOptions(device="cpu"))
+    held = {
+        "ease": lambda s: [s.weights],
+        "item": lambda s: [s.sim_table.sims, s.sim_table.indices, s.item_counts],
+        "user": lambda s: [s._nv_rows, s._nv_vals] + [t for b in s._iu_buckets for t in b],
+    }[kind.split("_")[0]]
+    assert all(t.device.type == "cuda" for t in held(on_card))
+    items = ItemList(item_ids=ds.items.ids)
+    for user in ds.users.ids[:6]:
+        query = RecQuery(user_id=user, user_items=ds.interaction_matrix().row_items(user))
+        got, want = on_card(query, items), on_cpu(query, items)
+        np.testing.assert_array_equal(np.isnan(got.scores()), np.isnan(want.scores()))
+        np.testing.assert_allclose(got.scores(), want.scores(), rtol=1e-4, atol=1e-5)

@@ -206,6 +206,15 @@ from lkpy_tpu_torch.metrics import quick_measure_model
 from lkpy_tpu_torch.splitting import SampleN, sample_users
 assert len(sample_users(ds, 5, SampleN(2, rng=1), rng=1).test) == 5
 assert np.isfinite(quick_measure_model(ImplicitMFScorer(features=4, epochs=1), ds, n_recs=5, device="cpu").global_metrics()).all()
+# the item-item family: kNN builds and scoring, EASE
+from lkpy_tpu_torch.models import EASEScorer, ItemKNNScorer, UserKNNScorer
+from lkpy_tpu_torch.ops.knn import similarity_topk
+import lkpy_tpu_torch.utils.residency
+for knn_scorer in (ItemKNNScorer(feedback="implicit"), UserKNNScorer(), EASEScorer()):
+    knn_pipe = lkpy_tpu_torch.topn_pipeline(knn_scorer, n=5)
+    knn_pipe.train(rated, TrainingOptions(device="cpu"))
+    assert recommend(knn_pipe, rated.users.ids[:3], n=5).total_items() > 0
+assert rated.interaction_matrix().scipy("rating").nnz > 0
 # every module of the package, and the chip smoke script
 import importlib, pkgutil
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
