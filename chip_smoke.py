@@ -74,7 +74,18 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      user kNN (200), EASE over all 27,000 items (200, its inverse held to
      a backward error), lists against float64 oracles over the port's own
      table or weights, and the explicit item kNN's held-out RMSE beside the
-     bias model's; these paths launch none of the five kernels.
+     bias model's; these paths launch none of the five kernels;
+   - the gradient family, bench.py's section 6: FlexMF-BPR (k = 64, batch
+     32,768, 5 epochs; set-up with the host Bloom build, epoch times, a
+     profiled epoch, one batch's negatives checked by exact membership,
+     NDCG@10 through ``device_recommend`` above the popularity ranking's),
+     LightGCN (2 epochs with falling losses, a profile of 5 steps, one
+     propagation against float64 SciPy, NDCG@10, the sparse route against
+     ``torch.sparse.mm``'s own backward and the dense bf16 route), and
+     ``topn_pipeline(FlexMFImplicitScorer(preset="warp", ...))`` →
+     ``Pipeline.train`` → ``batch.recommend`` of 1,000 test users through
+     the device route with 20 per-query lists beside it; these paths launch
+     none of the five kernels either.
 4. Prints one JSON line describing each kernel, and as its last line
    ``{"ok": true, "device": {...}}``.
 
@@ -104,6 +115,7 @@ import torch
 #: H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # bench.py's ML-20M-scale synthetic set
 N_USERS = 138_000
@@ -258,6 +270,23 @@ KNN_PREDICT_USERS = 500
 #: columns of EASE's inverse held to a backward error, and its bound
 EASE_COLUMNS = 64
 EASE_BACKWARD_MAX = 1e-4
+
+# the gradient family: bench.py's section 6 (bench.py:503-551), its shapes
+GRAD_FEATURES = 64
+GRAD_BATCH = 32_768
+FLEXMF_EPOCHS = 5
+#: BENCH_r05.json's NDCG@10 of the JAX package's FlexMF-BPR after 5 epochs
+#: on the same split: a quality mark only, no time of that run is used
+FLEXMF_BENCH_NDCG = 0.1111
+LIGHTGCN_PROFILE_STEPS = 5
+#: users and items whose propagated rows are held against float64 SciPy
+PROPAGATE_ORACLE_ROWS = 256
+PROPAGATE_TOL = 1e-4
+#: the test users served by the WARP pipeline, and those asked one by one
+WARP_USERS = 1_000
+WARP_PER_QUERY = 20
+#: forward and backward passes timed on each propagation route
+PROPAGATE_REPS = 5
 
 
 def log(*args):
@@ -848,23 +877,38 @@ def check_chunk_rows(trainer, k: int) -> None:
     log(f"largest chunk: {rows} systems of width {k} a launch, a shape of the kernel phase")
 
 
-def profile_device(fn, wall_ms: float, label: str, top: int = 10, mark: str | None = None):
-    """Profile one call of ``fn`` on the card; log device busy time, the
-    device idle share against ``wall_ms`` (the mean unprofiled call) and
-    the ``top`` kernels.  Returns (busy ms, idle share, share of the kernels
-    whose name holds ``mark``)."""
+def device_events(fn) -> list:
+    """The device activities of one call of ``fn`` by kernel or copy name
+    (``torch.profiler``'s averages; aten:: operators and user annotations
+    such as ``Optimizer.step#Adam.step`` repeat their kernels' time, and the
+    profiler's own buffer requests are not the program's, so they are left
+    out)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    # device activities only: aten:: operators repeat their kernels' time
-    evs = [e for e in prof.key_averages() if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+    return [
+        e
+        for e in prof.key_averages()
+        if e.self_device_time_total > 0
+        and not e.key.startswith("aten::")
+        and not getattr(e, "is_user_annotation", False)
+        and e.key != "Activity Buffer Request"
+    ]
+
+
+def profile_device(fn, wall_ms: float, label: str, top: int = 10, mark: str | None = None):
+    """Profile one call of ``fn`` on the card; log device busy time, the
+    launches, the device idle share against ``wall_ms`` (the mean
+    unprofiled call) and the ``top`` kernels.  Returns (busy ms, idle
+    share, share of the kernels whose name holds ``mark``)."""
+    evs = device_events(fn)
     total_ms = sum(e.self_device_time_total for e in evs) / 1e3
     idle = 1 - total_ms / wall_ms
     log(
-        f"profile of {label}: device busy {total_ms:.3f} ms in {len(evs)} kinds of kernel and copy; "
-        f"mean unprofiled call {wall_ms:.3f} ms -> device idle share {idle:.3f}"
+        f"profile of {label}: device busy {total_ms:.3f} ms in {len(evs)} kinds of kernel and copy, "
+        f"{sum(e.count for e in evs)} launches; mean unprofiled call {wall_ms:.3f} ms -> device idle share {idle:.3f}"
     )
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
@@ -2381,6 +2425,418 @@ def item_item_phase(dev, split: dict) -> dict:
     return paths
 
 
+def popularity_ndcg(ds, test_u, test_i) -> float:
+    """NDCG@10 of the most popular training items outside each test user's
+    history (bench.py's popularity yardstick)."""
+    csr = ds.interaction_matrix().csr(None)
+    order = np.argsort(-np.bincount(csr.colind, minlength=csr.ncols), kind="stable")
+    ids = np.asarray(ds.items.ids)
+    users = np.unique(test_u)
+    tops = []
+    for u in users:
+        hist = csr.row_cols(ds.users.number(u))
+        cand = order[: 10 + len(hist)]
+        tops.append(list(ids[cand[~np.isin(cand, hist)][:10]]))
+    return ndcg10(list(users), tops, test_u, test_i)
+
+
+def recommend_ndcg(scorer, ds, test_u, test_i) -> tuple[float, float]:
+    """NDCG@10 of ``device_recommend`` for every test user, and its seconds."""
+    from lkpy_tpu_torch.batch.device import device_recommend
+
+    t = time.perf_counter()
+    recs = device_recommend(scorer, np.unique(test_u), 10, ds.interaction_matrix())
+    took = time.perf_counter() - t
+    users, tops = [], []
+    for key, il in recs.items():
+        users.append(key[0])
+        tops.append(list(il.ids()))
+    return ndcg10(users, tops, test_u, test_i), took
+
+
+def spmm_bound(nnz: int, n_src: int, n_dst: int, k: int) -> tuple[float, str]:
+    """One propagate direction: each edge's column and value read once
+    (8 bytes), the row pointers, the source table read once and the output
+    written once; 2 operations an edge and column."""
+    t_bytes = (nnz * 8 + (n_dst + 1) * 4 + (n_src + n_dst) * k * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * nnz * k / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_epochs(trainer, epochs: int) -> tuple[list, list]:
+    """Host seconds and mean loss of ``epochs`` epochs, each ending in its
+    loss readback."""
+    times, losses = [], []
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(trainer.train_epoch())
+        times.append(time.perf_counter() - t)
+    return times, losses
+
+
+def check_negatives(trainer, csr, dev) -> int:
+    """One batch's negatives from the trainer's own sampler: every training
+    positive among them must be a slot whose 16 attempts the Bloom filter
+    all rejected.  Returns the count of such slots."""
+    from lkpy_tpu_torch.ops import sampling
+
+    exact = sampling.DeviceCSRIndex.from_csr(csr, bloom=False)
+    pick = torch.randint(0, csr.nnz, (GRAD_BATCH,), generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    users = trainer.examples.row[pick]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cands = sampling.draw_candidates(gen, trainer.neg_index, GRAD_BATCH, 1, 16, "uniform")
+    negs = sampling.choose_negatives(trainer.neg_index, users, cands)
+    again = sampling.sample_negatives(torch.Generator(device=dev).manual_seed(17), trainer.neg_index, users)
+    if not torch.equal(negs, again):
+        raise AssertionError("sample_negatives differs from choose_negatives on its own draws")
+    positive = sampling.csr_contains(exact, users[:, None], negs)
+    all_hit = sampling._bloom_contains(trainer.neg_index, users[:, None, None], cands).all(dim=2)
+    if bool((positive & ~all_hit).any()):
+        raise AssertionError("a training positive was accepted while an attempt was free")
+    n_pos = int(positive.sum())
+    log(
+        f"one batch's negatives ({GRAD_BATCH} slots): {n_pos} training positives by exact membership, "
+        f"{int(all_hit.sum())} slots whose 16 attempts all hit the Bloom filter"
+    )
+    return n_pos
+
+
+def flexmf_phase(dev, split: dict) -> tuple[dict, dict]:
+    """bench.py:504-533: FlexMF-BPR at k = 64, batch 32,768, 5 epochs, then
+    NDCG@10 through ``device_recommend`` against the popularity ranking."""
+    from lkpy_tpu_torch.models import FlexMFImplicitScorer
+    from lkpy_tpu_torch.ops.sampling import _build_bloom
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
+    csr = ds.interaction_matrix().csr(None)
+    nnz = csr.nnz
+    t = time.perf_counter()
+    _build_bloom(csr.rowptr, csr.colind, csr.nrows)
+    bloom_s = time.perf_counter() - t
+
+    scorer = FlexMFImplicitScorer(
+        FlexMFImplicitScorer.validate_config(
+            {"embedding_size": GRAD_FEATURES, "loss": "pairwise", "batch_size": GRAD_BATCH, "epochs": FLEXMF_EPOCHS}
+        )
+    )
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer = scorer.create_trainer(ds, TrainingOptions(rng=42))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    if any(p.device.type != dev.type for p in trainer.params.values()):
+        raise AssertionError("FlexMF's tables must lie on the card")
+    steps = -(-nnz // GRAD_BATCH)
+    warm, warm_loss = timed_epochs(trainer, 1)
+    times, losses = timed_epochs(trainer, FLEXMF_EPOCHS - 1)
+    losses = warm_loss + losses
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite FlexMF losses {losses}")
+    best, median = min(times), float(np.median(times))
+    log(
+        f"FlexMF-BPR (k={GRAD_FEATURES}, batch {GRAD_BATCH}, {steps} steps an epoch): set-up {setup_s:.3f}s "
+        f"(the host Bloom build alone {bloom_s:.3f}s), warm epoch {warm[0]:.3f}s, epochs 2-{FLEXMF_EPOCHS} {times} s; "
+        f"best {best:.4f}s, median {median:.4f}s -> {nnz / best:.4e} examples/s (nnz / best epoch, bench.py:523), "
+        f"{nnz / median:.4e} at the median; losses {losses}"
+    )
+    n_params = sum(p.numel() for p in trainer.params.values())
+    # a step's device work at least: the dense Adam (parameter, gradient, two moments read, three written,
+    # the gradient written by the backward) and 3 x batch gathered rows, read and scattered back
+    step_bytes = n_params * 4 * 8 + 3 * GRAD_BATCH * GRAD_FEATURES * 4 * 2
+    log(
+        f"  {n_params} parameters; a step moves at least {step_bytes / 1e9:.3f} GB = "
+        f"{step_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, an epoch "
+        f"{steps * step_bytes / PEAK_BYTES_PER_S * 1e3:.2f} ms"
+    )
+    trainer.finalize()
+    nd, serve_s = recommend_ndcg(scorer, ds, test_u, test_i)
+    busy, idle, _ = profile_device(lambda: trainer.train_epoch(), median * 1e3, "one FlexMF-BPR epoch", top=12)
+    negatives = check_negatives(trainer, csr, dev)
+    launches = read_counts()
+    pop = popularity_ndcg(ds, test_u, test_i)
+    log(
+        f"FlexMF-BPR NDCG@10 after {FLEXMF_EPOCHS} epochs: {nd:.4f} ({len(np.unique(test_u))} users, "
+        f"device_recommend {serve_s:.3f}s); popularity with history excluded {pop:.4f}; "
+        f"BENCH_r05.json's JAX FlexMF-BPR {FLEXMF_BENCH_NDCG}; launches {launches}"
+    )
+    if not nd > pop:
+        raise AssertionError(f"FlexMF-BPR NDCG@10 {nd} not above the popularity ranking's {pop}")
+    out = dict(
+        setup_s=setup_s, bloom_s=bloom_s, warm_s=warm[0], epoch_s=times, best_s=best, median_s=median,
+        examples_per_s=nnz / best, busy_ms=busy, idle_share=idle, ndcg=nd, popularity_ndcg=pop,
+        positives_in_a_batch=negatives, epoch_bound_ms=steps * step_bytes / PEAK_BYTES_PER_S * 1e3,
+    )  # fmt: skip
+    return launches, out
+
+
+def propagate_oracle(trainer, csr, rng: np.random.Generator) -> float:
+    """The propagated rows of 256 sampled users and items against float64
+    SciPy products of the same tables; the largest relative error."""
+    import scipy.sparse as sps
+
+    from lkpy_tpu_torch.ops.graph import propagate
+
+    conv = trainer.conv
+    with torch.no_grad():
+        u_eff, i_eff = propagate(trainer.params["u_embed"], trainer.params["i_embed"], conv, trainer.blend)
+    A = sps.csr_array(
+        (conv[2].double().cpu().numpy(), (conv[0].cpu().numpy(), conv[1].cpu().numpy())), shape=(conv[3], conv[4])
+    )
+    At = A.T.tocsr()
+    u = trainer.params["u_embed"].detach().double().cpu().numpy()
+    i = trainer.params["i_embed"].detach().double().cpu().numpy()
+    w = trainer.blend.astype(np.float64)
+    us = rng.choice(conv[3], PROPAGATE_ORACLE_ROWS, replace=False)
+    its = rng.choice(conv[4], PROPAGATE_ORACLE_ROWS, replace=False)
+    u_acc, i_acc = w[0] * u[us], w[0] * i[its]
+    ul, il = u, i
+    for layer in range(1, len(w)):
+        last = layer == len(w) - 1
+        nu = A[us] @ il if last else A @ il
+        ni = At[its] @ ul if last else At @ ul
+        u_acc = u_acc + w[layer] * (nu if last else nu[us])
+        i_acc = i_acc + w[layer] * (ni if last else ni[its])
+        ul, il = nu, ni
+    err_u = np.abs(u_eff[torch.as_tensor(us, device=u_eff.device)].double().cpu().numpy() - u_acc).max() / np.abs(u_acc).max()
+    err_i = np.abs(i_eff[torch.as_tensor(its, device=i_eff.device)].double().cpu().numpy() - i_acc).max() / np.abs(i_acc).max()
+    return float(max(err_u, err_i))
+
+
+def propagate_routes(trainer) -> dict:
+    """One forward and backward propagation on each route at this graph,
+    timed by CUDA events: the CSR Function (the trainers' route), the same
+    product through ``torch.sparse.mm``'s own backward, and the dense bf16
+    adjacency (built, timed and freed)."""
+    from lkpy_tpu_torch.ops import graph
+
+    u0 = trainer.params["u_embed"].detach()
+    i0 = trainer.params["i_embed"].detach()
+    conv, blend = trainer.conv, trainer.blend
+    wu, wi = torch.randn_like(u0), torch.randn_like(i0)
+
+    def fwd_bwd(prop):
+        u, i = u0.clone().requires_grad_(), i0.clone().requires_grad_()
+        a, b = prop(u, i)
+        ((a * wu).sum() + (b * wi).sum()).backward()
+        return u.grad, i.grad
+
+    a, a_t = graph._csr_pair(conv)
+
+    def library(u, i):
+        # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
+        w = graph._blend(blend)
+        ua, ia = u * w[0], i * w[0]
+        for layer in range(1, len(w)):
+            u, i = torch.sparse.mm(a, i), torch.sparse.mm(a_t, u)
+            ua, ia = ua + u * w[layer], ia + i * w[layer]
+        return ua, ia
+
+    out = {}
+    grads = fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend))
+    out["csr_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend)), PROPAGATE_REPS)
+    lib = fwd_bwd(library)
+    out["sparse_mm_autograd_ms"] = cuda_ms(lambda: fwd_bwd(library), PROPAGATE_REPS)
+    out["sparse_mm_autograd_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(lib, grads))
+    evs = device_events(lambda: fwd_bwd(library))
+    log(
+        "propagate, forward and backward: torch.sparse.mm's own backward "
+        f"{out['sparse_mm_autograd_ms']:.3f} ms against the CSR Function's {out['csr_ms']:.3f} ms "
+        f"(gradients within {out['sparse_mm_autograd_err']:.2e}); its kernels:"
+    )
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    adj = graph.build_dense_adjacency(conv[0], conv[1], conv[2], conv[3], conv[4])
+    torch.cuda.synchronize()
+    out["dense_build_s"] = time.perf_counter() - t
+    out["dense_gib"] = adj.numel() * adj.element_size() / 2**30
+    dense = fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend))
+    out["dense_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend)), PROPAGATE_REPS)
+    out["dense_grad_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(dense, grads))
+    nu_al, ni_al = adj.shape
+    # 2 products forward and 2 backward a layer, each reading the adjacency once and doing 2 nu_al ni_al k
+    # operations at the bf16 rate
+    products = 4 * (len(blend) - 1)
+    t_bytes = products * adj.numel() * adj.element_size() / PEAK_BYTES_PER_S * 1e3
+    t_ops = products * 2 * nu_al * ni_al * u0.shape[1] / PEAK_BF16_FLOP_PER_S * 1e3
+    out["dense_bound_ms"], out["dense_bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    nnz = conv[0].shape[0]
+    out["csr_bound_ms"] = products // 2 * (spmm_bound(nnz, conv[4], conv[3], u0.shape[1])[0] + spmm_bound(nnz, conv[3], conv[4], u0.shape[1])[0])
+    del adj
+    torch.cuda.empty_cache()
+    log(
+        f"dense bf16 route: adjacency {tuple((nu_al, ni_al))} {out['dense_gib']:.2f} GiB built in {out['dense_build_s']:.3f}s; "
+        f"forward and backward {out['dense_ms']:.3f} ms (bound {out['dense_bound_ms']:.3f} ms, {out['dense_bound_by']}) "
+        f"against the CSR route's {out['csr_ms']:.3f} ms (bound {out['csr_bound_ms']:.3f} ms); "
+        f"gradients within {out['dense_grad_err']:.2e} of the CSR route's"
+    )
+    return out
+
+
+def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
+    """bench.py:535-551: LightGCN at k = 64, batch 32,768, 2 epochs; a
+    profile of 5 steps, one propagation against float64, NDCG@10, and the
+    two propagation routes timed."""
+    from lkpy_tpu_torch.models import LightGCNScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
+    csr = ds.interaction_matrix().csr(None)
+    nnz = csr.nnz
+    scorer = LightGCNScorer(LightGCNScorer.validate_config({"embedding_size": GRAD_FEATURES, "batch_size": GRAD_BATCH, "epochs": 2}))
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer = scorer.create_trainer(ds, TrainingOptions(rng=42))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = timed_epochs(trainer, 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(
+        f"LightGCN (k={GRAD_FEATURES}, batch {GRAD_BATCH}, {len(trainer.blend) - 1} layers): set-up {setup_s:.3f}s, "
+        f"warm epoch {times[0]:.3f}s, timed epoch {times[1]:.3f}s -> {nnz / times[1]:.4e} examples/s; "
+        f"losses {losses}; peak device memory {peak:.2f} GiB"
+    )
+    if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+        raise AssertionError(f"LightGCN epoch losses must be finite and falling: {losses}")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    batches = [
+        (trainer.examples.row[idx], trainer.examples.col[idx])
+        for idx in (torch.randint(0, nnz, (GRAD_BATCH,), generator=gen, device=dev) for _ in range(LIGHTGCN_PROFILE_STEPS))
+    ]
+
+    def steps():
+        for users, items in batches:
+            trainer.opt.zero_grad()
+            trainer.batch_loss(users, items).backward()
+            trainer.opt.step()
+
+    steps()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    evs = device_events(steps)
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    # cuSPARSE's kernels: the product itself (csrmm) and its partition and scaling kernels
+    spmm = [e for e in evs if "cusparse" in e.key.lower()]
+    spmm_ms = sum(e.self_device_time_total for e in spmm) / 1e3
+    products = [e for e in spmm if "csrmm" in e.key.lower()]
+    directions = sum(e.count for e in products)
+    expected = LIGHTGCN_PROFILE_STEPS * 4 * (len(trainer.blend) - 1)
+    bound_u = spmm_bound(nnz, csr.ncols, csr.nrows, GRAD_FEATURES)
+    bound_i = spmm_bound(nnz, csr.nrows, csr.ncols, GRAD_FEATURES)
+    per_direction = spmm_ms / max(directions, 1)
+    log(
+        f"profile of {LIGHTGCN_PROFILE_STEPS} LightGCN steps: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in evs)} launches; cuSPARSE {spmm_ms:.3f} ms "
+        f"({spmm_ms / max(busy, 1e-9):.3f} of busy) over {directions} products recorded of {expected} run = {per_direction:.3f} ms "
+        f"a direction against its bound {bound_u[0]:.4f} ms (user side, {bound_u[1]}) / {bound_i[0]:.4f} ms (item side)"
+    )
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
+    err = propagate_oracle(trainer, csr, np.random.default_rng(9))
+    log(f"propagate on the card vs float64 SciPy ({PROPAGATE_ORACLE_ROWS} users and items): max relative error {err:.3e}")
+    if not err <= PROPAGATE_TOL:
+        raise AssertionError(f"propagate differs from float64 by {err} (tolerance {PROPAGATE_TOL})")
+    trainer.finalize()
+    nd, serve_s = recommend_ndcg(scorer, ds, test_u, test_i)
+    launches = read_counts()
+    log(f"LightGCN NDCG@10 after 2 epochs: {nd:.4f} (device_recommend {serve_s:.3f}s); launches {launches}")
+    routes = propagate_routes(trainer)
+    out = dict(
+        setup_s=setup_s, epoch_s=times, examples_per_s=nnz / times[1], losses=losses, peak_gib=peak,
+        steps_wall_ms=wall, steps_busy_ms=busy, spmm_ms_per_direction=per_direction,
+        spmm_bound_ms=[bound_u[0], bound_i[0]], propagate_err=err, ndcg=nd, **routes,
+    )  # fmt: skip
+    return launches, out
+
+
+def warp_pipeline_phase(dev, split: dict) -> tuple[dict, dict]:
+    """The user's path: ``topn_pipeline(FlexMFImplicitScorer(preset="warp",
+    ...), n=10)`` → ``Pipeline.train`` (one epoch) → ``batch.recommend`` of
+    1,000 test users through the device route, 20 of them asked one by one."""
+    import lkpy_tpu_torch
+    from lkpy_tpu_torch.batch import recommend
+    from lkpy_tpu_torch.batch.device import try_device_recommend
+    from lkpy_tpu_torch.data import ArrayTopNILC
+    from lkpy_tpu_torch.models import FlexMFImplicitScorer
+    from lkpy_tpu_torch.models.flexmf import FlexMFImplicitTrainer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, test_u = split["ds"], split["test_u"]
+    csr = ds.interaction_matrix().csr(None)
+    pipe = lkpy_tpu_torch.topn_pipeline(
+        FlexMFImplicitScorer(preset="warp", embedding_size=GRAD_FEATURES, batch_size=GRAD_BATCH, epochs=1), n=10
+    )
+    losses = []
+    epoch = FlexMFImplicitTrainer.train_epoch
+
+    def recorded(self):
+        losses.append(epoch(self))
+        return losses[-1]
+
+    zero_counts()
+    FlexMFImplicitTrainer.train_epoch = recorded
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.train(ds, TrainingOptions(rng=42))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+    finally:
+        FlexMFImplicitTrainer.train_epoch = epoch
+    if len(losses) != 1 or not np.isfinite(losses[0]):
+        raise AssertionError(f"the WARP epoch's loss must be finite: {losses}")
+    users = np.unique(test_u)[:WARP_USERS]
+    t = time.perf_counter()
+    recs = recommend(pipe, users, n=10)
+    serve_s = time.perf_counter() - t
+    launches = read_counts()
+    if not isinstance(recs, ArrayTopNILC) or try_device_recommend(pipe, users[:8], 10) is None:
+        raise AssertionError("the WARP pipeline must be served through the device route")
+    check_lists(recs, csr, ds.users, 10)
+    for u in users[:WARP_PER_QUERY]:
+        one = lkpy_tpu_torch.recommend(pipe, u, n=10)
+        if not same_ids_at_clear_gaps(one, recs.lookup(u)):
+            raise AssertionError(f"user {u}: the per-query list {list(one.ids())} differs from the batch list {list(recs.lookup(u).ids())}")
+    nd = ndcg10(list(users), [list(recs.lookup(u).ids()) for u in users], split["test_u"], split["test_i"])
+    log(
+        f"WARP pipeline: Pipeline.train (1 epoch, warp_candidates 64) {train_s:.3f}s, loss {losses[0]:.6f}; "
+        f"batch.recommend of {len(users)} users {serve_s:.3f}s through the device route, NDCG@10 {nd:.4f}; "
+        f"{WARP_PER_QUERY} per-query lists equal at clear gaps; launches {launches}"
+    )
+    return launches, dict(train_s=train_s, loss=losses[0], recommend_s=serve_s, ndcg=nd)
+
+
+def gradient_phase(dev, split: dict) -> dict:
+    """bench.py's section 6 through the port: FlexMF-BPR, LightGCN and a WARP
+    pipeline on bench.py's training split.  Returns the launches of each
+    path (these paths launch none of the five kernels) and the numbers."""
+    from lkpy_tpu_torch.batch.device import invalidate_device_cache
+
+    invalidate_device_cache()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    flexmf, flexmf_out = flexmf_phase(dev, split)
+    lightgcn, lightgcn_out = lightgcn_phase(dev, split)
+    warp, warp_out = warp_pipeline_phase(dev, split)
+    paths = {"gradient_flexmf": flexmf, "gradient_lightgcn": lightgcn, "gradient_pipeline": warp}
+    for path, counts in paths.items():
+        if any(counts.values()):
+            raise AssertionError(f"the {path} path launched a kernel: {counts}")
+    split["gradient"] = dict(flexmf=flexmf_out, lightgcn=lightgcn_out, warp=warp_out)
+    log(f"gradient phase: {time.perf_counter() - t:.1f}s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2467,6 +2923,7 @@ def main() -> int:
     evaluation_training, evaluation_serving, explicit_evaluation = evaluation_phase(dev, full, split["rng"])
     knn_builds = knn_build_phase(dev, split)
     item_item = item_item_phase(dev, split)
+    gradient = gradient_phase(dev, split)
 
     paths = {
         "serving": serving,
@@ -2483,6 +2940,7 @@ def main() -> int:
         "explicit_evaluation": explicit_evaluation,
         **knn_builds,
         **item_item,
+        **gradient,
     }
     for path, kernel in [
         ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_training", "gather_gram"),

@@ -80,8 +80,9 @@ def supports_device_batch(scorer) -> bool:
 
 
 def _extract_arrays(scorer) -> dict | None:
-    """Pull the user and item tables (and any biases) out of an
-    embedding-family scorer."""
+    """Pull the user and item tables (and any biases and score offset) out
+    of an embedding-family scorer: the ALS and LightGCN tables, or FlexMF's
+    ``params``."""
     if hasattr(scorer, "batch_score_arrays"):
         return scorer.batch_score_arrays()
     if hasattr(scorer, "user_embeddings") and hasattr(scorer, "item_embeddings"):
@@ -95,6 +96,15 @@ def _extract_arrays(scorer) -> dict | None:
             out["u_bias"] = bias.user_biases
             out["i_bias"] = bias.item_biases
             out["offset"] = bias.global_bias
+        return out
+    if hasattr(scorer, "params"):
+        # the FlexMF family: a dict of tables, biases and the scorer's offset
+        p = scorer.params
+        out = {"u_embed": p["u_embed"], "i_embed": p["i_embed"]}
+        for name in ("u_bias", "i_bias"):
+            if name in p:
+                out[name] = p[name]
+        out["offset"] = scorer.score_offset()
         return out
     return None
 

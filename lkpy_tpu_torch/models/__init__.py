@@ -1,5 +1,6 @@
 """The port's model zoo (port of ``lkpy_tpu.models``): the ALS family, the
-bias model, the basic components, item and user kNN and EASE."""
+bias model, the basic components, item and user kNN, EASE, and the
+gradient family (FlexMF, LightGCN)."""
 
 from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.models.basic import (
@@ -14,14 +15,27 @@ from lkpy_tpu_torch.models.basic import (
 )
 from lkpy_tpu_torch.models.bias import BiasConfig, BiasModel, BiasScorer
 from lkpy_tpu_torch.models.ease import EASEScorer
+from lkpy_tpu_torch.models.flexmf import (
+    FlexMFExplicitConfig,
+    FlexMFExplicitScorer,
+    FlexMFImplicitConfig,
+    FlexMFImplicitScorer,
+)
 from lkpy_tpu_torch.models.knn import ItemKNNScorer, UserKNNScorer
+from lkpy_tpu_torch.models.lightgcn import LightGCNConfig, LightGCNScorer
 
 __all__ = [
     "BiasedMFScorer",
     "EASEScorer",
+    "FlexMFExplicitConfig",
+    "FlexMFExplicitScorer",
+    "FlexMFImplicitConfig",
+    "FlexMFImplicitScorer",
     "ImplicitMFScorer",
     "ItemKNNScorer",
     "UserKNNScorer",
+    "LightGCNConfig",
+    "LightGCNScorer",
     "BiasConfig",
     "BiasModel",
     "BiasScorer",

@@ -1,27 +1,66 @@
 """
-Padded row layouts for batched per-row solves (host side).
+Sparse layouts.
 
-Port of the ALS part of ``lkpy_tpu/ops/sparse.py``: :class:`PaddedRowMatrix`,
-:func:`pad_rows` and :func:`bucket_rows` with its geometric width ladder.
-They run on the host in NumPy and give the same arrays as the JAX package;
-:func:`lkpy_tpu_torch.ops.als.chunk_buckets` cuts the buckets into
-fixed-shape chunks and uploads them.  The JAX package's ``DeviceCOO`` comes
-with the gradient family.
+Port of ``lkpy_tpu/ops/sparse.py``:
+
+- :class:`DeviceCOO`: flat (row, col, value) tensors on a device, the
+  examples the gradient-family trainers batch from.
+- :class:`PaddedRowMatrix`, :func:`pad_rows` and :func:`bucket_rows` with
+  its geometric width ladder: padded rows for batched per-row solves.  They
+  run on the host in NumPy and give the same arrays as the JAX package;
+  :func:`lkpy_tpu_torch.ops.als.chunk_buckets` cuts the buckets into
+  fixed-shape chunks and uploads them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.data.matrix import CSR
 
-__all__ = ["PaddedRowMatrix", "pad_rows", "bucket_rows", "round_up"]
+__all__ = ["DeviceCOO", "PaddedRowMatrix", "pad_rows", "bucket_rows", "round_up"]
 
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class DeviceCOO(NamedTuple):
+    """Flat COO tensors on a device (int32 indices, float32 values)."""
+
+    row: torch.Tensor  # (nnz,) int32
+    col: torch.Tensor  # (nnz,) int32
+    values: torch.Tensor | None  # (nnz,) float32
+    shape: tuple[int, int]
+
+    @classmethod
+    def from_csr(cls, csr: CSR, field: str | None = "rating", device: str | torch.device | None = None) -> "DeviceCOO":
+        """The entries of ``csr`` in row-major order on ``device`` (the card
+        unless ``"cpu"``), with the values of ``field`` (the CSR's own
+        values for ``"rating"`` or a field it lacks; none for None)."""
+        dev = resolve_device(device)
+        coo = csr.to_coo()
+        if field is None:
+            vals = None
+        elif field == "rating" or field not in csr.fields:
+            vals = coo.values
+        else:
+            vals = csr.fields[field]
+        return cls(
+            torch.as_tensor(coo.row.astype(np.int32), device=dev),
+            torch.as_tensor(coo.col.astype(np.int32), device=dev),
+            None if vals is None else torch.as_tensor(np.asarray(vals, dtype=np.float32), device=dev),
+            csr.shape,
+        )
+
+    @property
+    def nnz(self) -> int:
+        return self.row.shape[0]
 
 
 @dataclass(frozen=True)

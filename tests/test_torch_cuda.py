@@ -1,5 +1,5 @@
-"""On-card tests of the port's kernels and of its serving, training, retrieval
-and explicit slices.
+"""On-card tests of the port's kernels and of its serving, training, retrieval,
+explicit, item-item and gradient slices.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor ``lkpy_tpu``, so it runs where only PyTorch is installed:
@@ -762,3 +762,131 @@ def test_item_item_scorers_train_on_card_by_default(cuda, kind):
         got, want = on_card(query, items), on_cpu(query, items)
         np.testing.assert_array_equal(np.isnan(got.scores()), np.isnan(want.scores()))
         np.testing.assert_allclose(got.scores(), want.scores(), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the gradient family: negative sampling, graph propagation, FlexMF, LightGCN
+def _interactions_csr(rng):
+    ds = _ratings_dataset(rng)
+    return ds, ds.interaction_matrix().csr(None)
+
+
+@pytest.mark.parametrize("bloom", [True, False])
+def test_sampler_on_card_equals_cpu(cuda, bloom):
+    from lkpy_tpu_torch.ops import sampling
+
+    rng = np.random.default_rng(41)
+    _, csr = _interactions_csr(rng)
+    on_card = sampling.DeviceCSRIndex.from_csr(csr, bloom=bloom)
+    on_cpu = sampling.DeviceCSRIndex.from_csr(csr, bloom=bloom, device="cpu")
+    assert on_card.colind.device.type == "cuda"
+    rows = torch.from_numpy(rng.integers(0, csr.nrows, 4096))
+    cands = torch.from_numpy(rng.integers(0, csr.ncols, (4096, 3, 16)).astype(np.int32))
+    got = sampling.choose_negatives(on_card, rows.to(cuda), cands.to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), sampling.choose_negatives(on_cpu, rows, cands).numpy())
+    np.testing.assert_array_equal(
+        sampling.csr_contains(on_card, rows.to(cuda)[:, None], cands[:, 0].to(cuda)).cpu().numpy(),
+        sampling.csr_contains(on_cpu, rows[:, None], cands[:, 0]).numpy(),
+    )
+    if bloom:
+        big = torch.from_numpy(rng.integers(0, 2**31, (2, 100_000)).astype(np.int32))
+        for log2_bits in (10, 28, 32):
+            for g, w in zip(
+                sampling._bloom_bit_positions(big[0].to(cuda), big[1].to(cuda), log2_bits, torch),
+                sampling._bloom_bit_positions(big[0].numpy(), big[1].numpy(), log2_bits, np),
+            ):
+                np.testing.assert_array_equal(g.cpu().numpy(), w.astype(np.int64))
+        np.testing.assert_array_equal(
+            sampling._bloom_contains(on_card, rows.to(cuda)[:, None, None], cands.to(cuda)).cpu().numpy(),
+            sampling._bloom_contains(on_cpu, rows[:, None, None], cands).numpy(),
+        )
+    # the card's own generator: its picks are verified negatives unless every attempt hit
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    negs = sampling.sample_negatives(gen, on_card, rows.to(cuda), n=4, weighting="popularity")
+    assert negs.device.type == "cuda" and tuple(negs.shape) == (4096, 4)
+    exact = sampling.DeviceCSRIndex.from_csr(csr, bloom=False)
+    assert int(sampling.csr_contains(exact, rows.to(cuda)[:, None], negs).sum()) == 0
+
+
+def test_csr_propagation_on_card_matches_plain(cuda):
+    from lkpy_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(42)
+    _, csr = _interactions_csr(rng)
+    coo = csr.to_coo()
+    vals = rng.uniform(0.05, 1.0, csr.nnz).astype(np.float32)
+    conv = graph.sorted_conv(coo.row, coo.col, vals, csr.nrows, csr.ncols)
+    a, a_t = graph._csr_pair(conv)
+    r, c, v = conv[:3]
+    u = torch.from_numpy(rng.standard_normal((csr.nrows, 64)).astype(np.float32)).to(cuda)
+    i = torch.from_numpy(rng.standard_normal((csr.ncols, 64)).astype(np.float32)).to(cuda)
+    wu, wi = torch.randn_like(u), torch.randn_like(i)
+    x, y = i.clone().requires_grad_(), u.clone().requires_grad_()
+    got_u, got_i = graph._CSRMM.apply(x, a, a_t), graph._CSRMM.apply(y, a_t, a)
+    ((got_u * wu).sum() + (got_i * wi).sum()).backward()
+    x2, y2 = i.clone().requires_grad_(), u.clone().requires_grad_()
+    want_u, want_i = graph.spmm_plain(v, c, r, x2, csr.nrows), graph.spmm_plain(v, r, c, y2, csr.ncols)
+    ((want_u * wu).sum() + (want_i * wi).sum()).backward()
+    for g, w in ((got_u.detach(), want_u.detach()), (got_i.detach(), want_i.detach()), (x.grad, x2.grad), (y.grad, y2.grad)):
+        assert g.device.type == "cuda"
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 1e-5, err
+
+
+def _det_negatives(generator, index, rows, *, n=1, weighting="uniform", max_attempts=16):
+    """Fixed candidates, each slot's first that the exact CSR search finds no
+    interaction for: the same negatives on either device."""
+    from lkpy_tpu_torch.ops.sampling import csr_contains
+
+    slot = torch.arange(n, device=rows.device)[None, :, None]
+    attempt = torch.arange(16, device=rows.device)[None, None, :]
+    cands = (rows[:, None, None].long() * 7 + slot * 13 + attempt * 31 + 3) % index.n_cols
+    bad = csr_contains(index, rows[:, None, None], cands)
+    pick = torch.where(bad, 15, attempt).amin(dim=2)
+    return cands.gather(2, pick[:, :, None])[:, :, 0]
+
+
+@pytest.mark.parametrize("model", ["bpr", "lightgcn"])
+def test_gradient_epoch_on_card_matches_cpu(cuda, model, monkeypatch):
+    import lkpy_tpu_torch.models.flexmf as flexmf
+    import lkpy_tpu_torch.models.lightgcn as lightgcn
+
+    monkeypatch.setattr(flexmf, "sample_negatives", _det_negatives)
+    monkeypatch.setattr(lightgcn, "sample_negatives", _det_negatives)
+    ds = _ratings_dataset(np.random.default_rng(43))
+    cfg = {"embedding_size": 16, "batch_size": 512, "epochs": 1}
+    make = (lambda: flexmf.FlexMFImplicitScorer(preset="bpr", **cfg)) if model == "bpr" else (lambda: lightgcn.LightGCNScorer(**cfg))
+    on_cpu = make().create_trainer(ds, TrainingOptions(rng=7, device="cpu"))
+    on_card = make().create_trainer(ds, TrainingOptions(rng=7))
+    on_card.load_parameters(on_cpu.get_parameters())
+    assert all(p.device.type == "cuda" for p in on_card.params.values())
+    want_loss, got_loss = on_cpu.train_epoch(), on_card.train_epoch()
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    got, want = on_card.get_parameters(), on_cpu.get_parameters()
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["bpr", "warp", "explicit", "lightgcn"])
+def test_gradient_scorers_train_and_serve_on_card_by_default(cuda, kind):
+    from lkpy_tpu_torch.data import ItemList
+    from lkpy_tpu_torch.models import FlexMFExplicitScorer, FlexMFImplicitScorer, LightGCNScorer
+
+    ds = _ratings_dataset(np.random.default_rng(44))
+    cfg = {"embedding_size": 16, "batch_size": 512, "epochs": 2}
+    scorer = {
+        "bpr": lambda: FlexMFImplicitScorer(preset="bpr", **cfg),
+        "warp": lambda: FlexMFImplicitScorer(preset="warp", warp_candidates=16, **cfg),
+        "explicit": lambda: FlexMFExplicitScorer(**cfg),
+        "lightgcn": lambda: LightGCNScorer(**cfg),
+    }[kind]()
+    scorer.train(ds, TrainingOptions(rng=3))
+    tables = list(scorer.params.values()) if kind != "lightgcn" else [scorer.user_embeddings, scorer.item_embeddings]
+    assert all(t.device.type == "cuda" and bool(torch.isfinite(t).all()) for t in tables)
+    users = ds.users.ids[:50]
+    recs = device_recommend(scorer, users, 10, ds.interaction_matrix())
+    items = ItemList(item_ids=ds.items.ids)
+    for user in users[:5]:
+        il = recs.lookup(user)
+        scores = scorer(user, items).scores()
+        np.testing.assert_allclose(il.scores(), scores[ds.items.numbers(il.ids())], rtol=1e-5, atol=1e-6)

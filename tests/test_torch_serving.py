@@ -215,6 +215,14 @@ for knn_scorer in (ItemKNNScorer(feedback="implicit"), UserKNNScorer(), EASEScor
     knn_pipe.train(rated, TrainingOptions(device="cpu"))
     assert recommend(knn_pipe, rated.users.ids[:3], n=5).total_items() > 0
 assert rated.interaction_matrix().scipy("rating").nnz > 0
+# the gradient family: negative sampling, graph propagation, FlexMF and LightGCN
+from lkpy_tpu_torch.models import FlexMFExplicitScorer, FlexMFImplicitScorer, LightGCNScorer
+for grad_scorer, data in ((FlexMFImplicitScorer(preset="warp", embedding_size=4, epochs=1, warp_candidates=4), ds),
+                          (FlexMFImplicitScorer(preset="lightgcn", embedding_size=4, epochs=1), ds),
+                          (FlexMFExplicitScorer(embedding_size=4, epochs=1), rated), (LightGCNScorer(embedding_size=4, epochs=1), ds)):
+    grad_pipe = lkpy_tpu_torch.topn_pipeline(grad_scorer, n=5)
+    grad_pipe.train(data, TrainingOptions(rng=1, device="cpu"))
+    assert recommend(grad_pipe, data.users.ids[:3], n=5).total_items() > 0
 # every module of the package, and the chip smoke script
 import importlib, pkgutil
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
