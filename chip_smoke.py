@@ -30,7 +30,7 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
    epochs' largest user and widest item chunks, a serving block and one
    runner query, implicit at 64 and explicit at 50 features, timed beside
    the route it replaced (the row gather, a weighted copy, two
-   ``torch.bmm``), whose epoch is profiled too.
+   ``torch.bmm``).
 3. Makes bench.py's synthetic ML-20M-scale interactions (138k users x 27k
    items, seed 42) once, and drives the paths of the port at full width,
    each with the launch counters set to 0 just before it and read just
@@ -42,8 +42,8 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      factors (``features=64``), checked against a float64 NumPy/SciPy oracle
      and timed;
    - training: ``ImplicitMFScorer.train`` for 10 epochs on bench.py's
-     training split, then epoch times, a profile of one epoch, a float64
-     check of one user half-epoch, NDCG@10 on the held-out split through
+     training split, then epoch times, a float64 check of one user
+     half-epoch, NDCG@10 on the held-out split through
      ``device_recommend``, and the trained scorer served again with fold-in;
    - retrieval: ``retrieval_topk`` of 4,096 trained user rows against the
      trained item table tiled to 500,000 items (bench.py's large catalog),
@@ -57,6 +57,18 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      test users through the device route (NDCG@10 against the direct
      path's), and per-query ``recommend`` against the batch lists (one
      gather-and-Gram launch, one fold-in solve and one row gather a query);
+   - the data layer and the runtime core: the training split through
+     ``DatasetBuilder`` with three item attributes, ``Dataset.save``, loaded
+     back by ``Dataset.load``, a lazy ``Dataset(thunk)`` and
+     ``DataContainer`` (each equal to the built one); the same pipeline
+     trained on the lazy copy under ``configure(training_perf={"ladder_ratio":
+     2.0})`` (the solve and the gather-and-Gram kernel once a chunk of the
+     2.0 plan, both held against their plain versions at its largest user
+     and widest item chunks, one epoch at both ladders from the same
+     tables), served (NDCG@10 against the pipeline's) and served again with
+     float16 scores; 5 epochs, a checkpoint through ``state`` and 5 more in a
+     new trainer against 10 straight; host negative sampling checked by
+     exact membership;
    - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
      on all the interactions, 5 % of the users (split, ``Pipeline.train``,
      the per-query runner, which folds each user in and scores on the card,
@@ -76,18 +88,20 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      table or weights, and the explicit item kNN's held-out RMSE beside the
      bias model's; these paths launch none of the five kernels;
    - the gradient family, bench.py's section 6: FlexMF-BPR (k = 64, batch
-     32,768, 5 epochs; set-up with the host Bloom build, epoch times, a
-     profiled epoch, one batch's negatives checked by exact membership,
-     NDCG@10 through ``device_recommend`` above the popularity ranking's),
-     LightGCN (2 epochs with falling losses, a profile of 5 steps, one
-     propagation against float64 SciPy, NDCG@10, the sparse route against
-     ``torch.sparse.mm``'s own backward and the dense bf16 route), and
+     32,768, 5 epochs; set-up with the host Bloom build, epoch times, one
+     batch's negatives checked by exact membership, NDCG@10 through
+     ``device_recommend`` above the popularity ranking's), LightGCN (2
+     epochs with falling losses, one propagation against float64 SciPy,
+     NDCG@10, the dense bf16 route's gradients against the CSR route's), and
      ``topn_pipeline(FlexMFImplicitScorer(preset="warp", ...))`` →
      ``Pipeline.train`` → ``batch.recommend`` of 1,000 test users through
      the device route with 20 per-query lists beside it; these paths launch
      none of the five kernels either.
-4. Prints one JSON line describing each kernel, and as its last line
-   ``{"ok": true, "device": {...}}``.
+4. Logs every phase's wall time, prints one JSON line describing each
+   kernel, and as its last line ``{"ok": true, "device": {...}}``.
+
+The profiles and timings that measure speed and check nothing run only with
+``PROFILES`` on (``scripts/chip_profiles.py``, ``scripts/gradient_probe.py``).
 
 Every check raises on failure, so the script exits non-zero and prints no
 result.  Without a CUDA device it exits non-zero at once.
@@ -287,6 +301,27 @@ WARP_USERS = 1_000
 WARP_PER_QUERY = 20
 #: forward and backward passes timed on each propagation route
 PROPAGATE_REPS = 5
+#: the profiles and timings that only measure speed and check nothing (profiles of an epoch, a serving
+#: call, scorer calls and steps; the route before the gather-and-Gram kernel; the host Bloom build alone;
+#: the propagation against torch.sparse.mm's own backward and the dense route's time): off here, on in
+#: scripts/chip_profiles.py (every phase) and scripts/gradient_probe.py (the gradient phase)
+PROFILES = False
+#: the data and configuration phase: item attributes drawn from this seed (an int64 category of
+#: ATTR_CATEGORIES, a list of 1-4 tags on ATTR_LIST_SHARE of the items, a float32 vector of ATTR_WIDTH)
+ATTR_SEED = 42
+ATTR_CATEGORIES = 20
+ATTR_LIST_SHARE = 0.25
+ATTR_WIDTH = 8
+#: the configured ladder, against the default 1.35
+CONFIG_LADDER = 2.0
+#: one epoch at both ladders from the same tables: relative Frobenius distance of the factors
+LADDER_EPOCH_TOL = 1e-4
+#: checkpoint after CHECKPOINT_EPOCHS, resume for as many, against 2 x CHECKPOINT_EPOCHS straight
+CHECKPOINT_EPOCHS = 5
+RESUME_TOL = 1e-6
+#: host negative sampling: users, negatives a user
+NEG_USERS = 16_384
+NEG_N = 4
 
 
 def log(*args):
@@ -902,7 +937,10 @@ def profile_device(fn, wall_ms: float, label: str, top: int = 10, mark: str | No
     """Profile one call of ``fn`` on the card; log device busy time, the
     launches, the device idle share against ``wall_ms`` (the mean
     unprofiled call) and the ``top`` kernels.  Returns (busy ms, idle
-    share, share of the kernels whose name holds ``mark``)."""
+    share, share of the kernels whose name holds ``mark``), all None
+    without ``PROFILES``."""
+    if not PROFILES:
+        return None, None, None
     evs = device_events(fn)
     total_ms = sum(e.self_device_time_total for e in evs) / 1e3
     idle = 1 - total_ms / wall_ms
@@ -1004,8 +1042,12 @@ def epochs_before(trainer, label: str, epochs: int = 3) -> None:
     """Time ``epochs`` epochs of ``trainer`` and profile one with the normal
     equations formed as before the gather-and-Gram kernel (the row-gather
     kernel, a weighted copy, two ``torch.bmm``): the epoch's device time by
-    kernel before the change, beside the profile of the path as it is."""
+    kernel before the change, beside the profile of the path as it is.
+    Only with ``PROFILES``."""
     from lkpy_tpu_torch.ops import als as als_ops
+
+    if not PROFILES:
+        return
 
     kernel = als_ops.gather_gram
     als_ops.gather_gram = unfused_normal_eqs
@@ -1847,6 +1889,7 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict, dict]:
         if not same_ids_at_clear_gaps(one, recs.lookup(u)):
             raise AssertionError(f"user {u}: per-query recommend {list(one.ids())} differs from the batch list {list(recs.lookup(u).ids())}")
     per_query = read_counts()
+    split["pipeline_ndcg"] = nd
     log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s); launches {per_query}")
     want = {"spd_solve": PER_QUERY_USERS, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": PER_QUERY_USERS, "gather_gram": PER_QUERY_USERS}
     if per_query != want:
@@ -1856,13 +1899,15 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict, dict]:
 
 def chunks_per_epoch(ds) -> int:
     """Chunks of one ALS epoch over ``ds`` (both halves), bucketed and
-    chunked as the trainers do it, on the host."""
-    from lkpy_tpu_torch.models.als import LADDER_RATIO
+    chunked as the trainers do it, on the ladder of the active settings, on
+    the host."""
+    from lkpy_tpu_torch.config import lkpy_tpu_config
     from lkpy_tpu_torch.ops.als import chunk_buckets
     from lkpy_tpu_torch.ops.sparse import bucket_rows
 
+    ratio = lkpy_tpu_config().training_perf.ladder_ratio
     csr = ds.interaction_matrix().csr(None)
-    return sum(c.rows.shape[0] for m in (csr, csr.transpose()) for c in chunk_buckets(bucket_rows(m, ratio=LADDER_RATIO), device="cpu"))
+    return sum(c.rows.shape[0] for m in (csr, csr.transpose()) for c in chunk_buckets(bucket_rows(m, ratio=ratio), device="cpu"))
 
 
 def instrumented_quick(*args, **kwargs):
@@ -2267,8 +2312,8 @@ def item_item_phase(dev, split: dict) -> dict:
         busy, idle, _ = profile_device(
             lambda: [scorer(query, cands) for _ in range(calls)], wall_ms * calls, f"{calls} {label} scorer calls", top=5
         )
-        if busy == 0:
-            log(f"  {label}: the profile holds no device activity; its device time is not measured")
+        if not busy:
+            log(f"  {label}: no profile of its device activity; its device time is not measured here")
             return dict(scorer_ms=wall_ms, device_busy_ms=None, idle_share=None)
         return dict(scorer_ms=wall_ms, device_busy_ms=busy / calls, idle_share=idle)
 
@@ -2512,9 +2557,12 @@ def flexmf_phase(dev, split: dict) -> tuple[dict, dict]:
     ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
     csr = ds.interaction_matrix().csr(None)
     nnz = csr.nnz
-    t = time.perf_counter()
-    _build_bloom(csr.rowptr, csr.colind, csr.nrows)
-    bloom_s = time.perf_counter() - t
+    bloom_s = None
+    if PROFILES:
+        t = time.perf_counter()
+        _build_bloom(csr.rowptr, csr.colind, csr.nrows)
+        bloom_s = time.perf_counter() - t
+        log(f"FlexMF: the host Bloom build alone {bloom_s:.3f}s")
 
     scorer = FlexMFImplicitScorer(
         FlexMFImplicitScorer.validate_config(
@@ -2538,7 +2586,7 @@ def flexmf_phase(dev, split: dict) -> tuple[dict, dict]:
     best, median = min(times), float(np.median(times))
     log(
         f"FlexMF-BPR (k={GRAD_FEATURES}, batch {GRAD_BATCH}, {steps} steps an epoch): set-up {setup_s:.3f}s "
-        f"(the host Bloom build alone {bloom_s:.3f}s), warm epoch {warm[0]:.3f}s, epochs 2-{FLEXMF_EPOCHS} {times} s; "
+        f"with the host Bloom build, warm epoch {warm[0]:.3f}s, epochs 2-{FLEXMF_EPOCHS} {times} s; "
         f"best {best:.4f}s, median {median:.4f}s -> {nnz / best:.4e} examples/s (nnz / best epoch, bench.py:523), "
         f"{nnz / median:.4e} at the median; losses {losses}"
     )
@@ -2606,10 +2654,10 @@ def propagate_oracle(trainer, csr, rng: np.random.Generator) -> float:
 
 
 def propagate_routes(trainer) -> dict:
-    """One forward and backward propagation on each route at this graph,
-    timed by CUDA events: the CSR Function (the trainers' route), the same
-    product through ``torch.sparse.mm``'s own backward, and the dense bf16
-    adjacency (built, timed and freed)."""
+    """One forward and backward propagation on the dense bf16 route (built,
+    run and freed), its gradients against the CSR Function's (the trainers'
+    route).  With ``PROFILES``, each route timed by CUDA events beside the
+    same product through ``torch.sparse.mm``'s own backward."""
     from lkpy_tpu_torch.ops import graph
 
     u0 = trainer.params["u_embed"].detach()
@@ -2623,31 +2671,32 @@ def propagate_routes(trainer) -> dict:
         ((a * wu).sum() + (b * wi).sum()).backward()
         return u.grad, i.grad
 
-    a, a_t = graph._csr_pair(conv)
-
-    def library(u, i):
-        # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
-        w = graph._blend(blend)
-        ua, ia = u * w[0], i * w[0]
-        for layer in range(1, len(w)):
-            u, i = torch.sparse.mm(a, i), torch.sparse.mm(a_t, u)
-            ua, ia = ua + u * w[layer], ia + i * w[layer]
-        return ua, ia
-
     out = {}
     grads = fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend))
-    out["csr_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend)), PROPAGATE_REPS)
-    lib = fwd_bwd(library)
-    out["sparse_mm_autograd_ms"] = cuda_ms(lambda: fwd_bwd(library), PROPAGATE_REPS)
-    out["sparse_mm_autograd_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(lib, grads))
-    evs = device_events(lambda: fwd_bwd(library))
-    log(
-        "propagate, forward and backward: torch.sparse.mm's own backward "
-        f"{out['sparse_mm_autograd_ms']:.3f} ms against the CSR Function's {out['csr_ms']:.3f} ms "
-        f"(gradients within {out['sparse_mm_autograd_err']:.2e}); its kernels:"
-    )
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
+    if PROFILES:
+        a, a_t = graph._csr_pair(conv)
+
+        def library(u, i):
+            # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
+            w = graph._blend(blend)
+            ua, ia = u * w[0], i * w[0]
+            for layer in range(1, len(w)):
+                u, i = torch.sparse.mm(a, i), torch.sparse.mm(a_t, u)
+                ua, ia = ua + u * w[layer], ia + i * w[layer]
+            return ua, ia
+
+        out["csr_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend)), PROPAGATE_REPS)
+        lib = fwd_bwd(library)
+        out["sparse_mm_autograd_ms"] = cuda_ms(lambda: fwd_bwd(library), PROPAGATE_REPS)
+        out["sparse_mm_autograd_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(lib, grads))
+        evs = device_events(lambda: fwd_bwd(library))
+        log(
+            "propagate, forward and backward: torch.sparse.mm's own backward "
+            f"{out['sparse_mm_autograd_ms']:.3f} ms against the CSR Function's {out['csr_ms']:.3f} ms "
+            f"(gradients within {out['sparse_mm_autograd_err']:.2e}); its kernels:"
+        )
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
     torch.cuda.synchronize()
     t = time.perf_counter()
     adj = graph.build_dense_adjacency(conv[0], conv[1], conv[2], conv[3], conv[4])
@@ -2655,25 +2704,28 @@ def propagate_routes(trainer) -> dict:
     out["dense_build_s"] = time.perf_counter() - t
     out["dense_gib"] = adj.numel() * adj.element_size() / 2**30
     dense = fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend))
-    out["dense_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend)), PROPAGATE_REPS)
     out["dense_grad_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(dense, grads))
     nu_al, ni_al = adj.shape
-    # 2 products forward and 2 backward a layer, each reading the adjacency once and doing 2 nu_al ni_al k
-    # operations at the bf16 rate
-    products = 4 * (len(blend) - 1)
-    t_bytes = products * adj.numel() * adj.element_size() / PEAK_BYTES_PER_S * 1e3
-    t_ops = products * 2 * nu_al * ni_al * u0.shape[1] / PEAK_BF16_FLOP_PER_S * 1e3
-    out["dense_bound_ms"], out["dense_bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    nnz = conv[0].shape[0]
-    out["csr_bound_ms"] = products // 2 * (spmm_bound(nnz, conv[4], conv[3], u0.shape[1])[0] + spmm_bound(nnz, conv[3], conv[4], u0.shape[1])[0])
-    del adj
-    torch.cuda.empty_cache()
     log(
         f"dense bf16 route: adjacency {tuple((nu_al, ni_al))} {out['dense_gib']:.2f} GiB built in {out['dense_build_s']:.3f}s; "
-        f"forward and backward {out['dense_ms']:.3f} ms (bound {out['dense_bound_ms']:.3f} ms, {out['dense_bound_by']}) "
-        f"against the CSR route's {out['csr_ms']:.3f} ms (bound {out['csr_bound_ms']:.3f} ms); "
-        f"gradients within {out['dense_grad_err']:.2e} of the CSR route's"
+        f"forward and backward gradients within {out['dense_grad_err']:.2e} of the CSR route's"
     )
+    if PROFILES:
+        out["dense_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend)), PROPAGATE_REPS)
+        # 2 products forward and 2 backward a layer, each reading the adjacency once and doing 2 nu_al ni_al k
+        # operations at the bf16 rate
+        products = 4 * (len(blend) - 1)
+        t_bytes = products * adj.numel() * adj.element_size() / PEAK_BYTES_PER_S * 1e3
+        t_ops = products * 2 * nu_al * ni_al * u0.shape[1] / PEAK_BF16_FLOP_PER_S * 1e3
+        out["dense_bound_ms"], out["dense_bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        nnz = conv[0].shape[0]
+        out["csr_bound_ms"] = products // 2 * (spmm_bound(nnz, conv[4], conv[3], u0.shape[1])[0] + spmm_bound(nnz, conv[3], conv[4], u0.shape[1])[0])
+        log(
+            f"dense bf16 route: forward and backward {out['dense_ms']:.3f} ms (bound {out['dense_bound_ms']:.3f} ms, "
+            f"{out['dense_bound_by']}) against the CSR route's {out['csr_ms']:.3f} ms (bound {out['csr_bound_ms']:.3f} ms)"
+        )
+    del adj
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2705,43 +2757,45 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"LightGCN epoch losses must be finite and falling: {losses}")
 
-    gen = torch.Generator(device=dev).manual_seed(5)
-    batches = [
-        (trainer.examples.row[idx], trainer.examples.col[idx])
-        for idx in (torch.randint(0, nnz, (GRAD_BATCH,), generator=gen, device=dev) for _ in range(LIGHTGCN_PROFILE_STEPS))
-    ]
-
-    def steps():
-        for users, items in batches:
-            trainer.opt.zero_grad()
-            trainer.batch_loss(users, items).backward()
-            trainer.opt.step()
-
-    steps()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    steps()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
-    evs = device_events(steps)
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
-    # cuSPARSE's kernels: the product itself (csrmm) and its partition and scaling kernels
-    spmm = [e for e in evs if "cusparse" in e.key.lower()]
-    spmm_ms = sum(e.self_device_time_total for e in spmm) / 1e3
-    products = [e for e in spmm if "csrmm" in e.key.lower()]
-    directions = sum(e.count for e in products)
-    expected = LIGHTGCN_PROFILE_STEPS * 4 * (len(trainer.blend) - 1)
     bound_u = spmm_bound(nnz, csr.ncols, csr.nrows, GRAD_FEATURES)
     bound_i = spmm_bound(nnz, csr.nrows, csr.ncols, GRAD_FEATURES)
-    per_direction = spmm_ms / max(directions, 1)
-    log(
-        f"profile of {LIGHTGCN_PROFILE_STEPS} LightGCN steps: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in evs)} launches; cuSPARSE {spmm_ms:.3f} ms "
-        f"({spmm_ms / max(busy, 1e-9):.3f} of busy) over {directions} products recorded of {expected} run = {per_direction:.3f} ms "
-        f"a direction against its bound {bound_u[0]:.4f} ms (user side, {bound_u[1]}) / {bound_i[0]:.4f} ms (item side)"
-    )
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
+    wall = busy = per_direction = None
+    if PROFILES:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        batches = [
+            (trainer.examples.row[idx], trainer.examples.col[idx])
+            for idx in (torch.randint(0, nnz, (GRAD_BATCH,), generator=gen, device=dev) for _ in range(LIGHTGCN_PROFILE_STEPS))
+        ]
+
+        def steps():
+            for users, items in batches:
+                trainer.opt.zero_grad()
+                trainer.batch_loss(users, items).backward()
+                trainer.opt.step()
+
+        steps()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        evs = device_events(steps)
+        busy = sum(e.self_device_time_total for e in evs) / 1e3
+        # cuSPARSE's kernels: the product itself (csrmm) and its partition and scaling kernels
+        spmm = [e for e in evs if "cusparse" in e.key.lower()]
+        spmm_ms = sum(e.self_device_time_total for e in spmm) / 1e3
+        products = [e for e in spmm if "csrmm" in e.key.lower()]
+        directions = sum(e.count for e in products)
+        expected = LIGHTGCN_PROFILE_STEPS * 4 * (len(trainer.blend) - 1)
+        per_direction = spmm_ms / max(directions, 1)
+        log(
+            f"profile of {LIGHTGCN_PROFILE_STEPS} LightGCN steps: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in evs)} launches; cuSPARSE {spmm_ms:.3f} ms "
+            f"({spmm_ms / max(busy, 1e-9):.3f} of busy) over {directions} products recorded of {expected} run = {per_direction:.3f} ms "
+            f"a direction against its bound {bound_u[0]:.4f} ms (user side, {bound_u[1]}) / {bound_i[0]:.4f} ms (item side)"
+        )
+        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
     err = propagate_oracle(trainer, csr, np.random.default_rng(9))
     log(f"propagate on the card vs float64 SciPy ({PROPAGATE_ORACLE_ROWS} users and items): max relative error {err:.3e}")
     if not err <= PROPAGATE_TOL:
@@ -2837,6 +2891,296 @@ def gradient_phase(dev, split: dict) -> dict:
     return paths
 
 
+def attributed_dataset(split: dict):
+    """bench.py's training split through ``DatasetBuilder`` with three item
+    attributes drawn from ``ATTR_SEED``: a scalar int64 category, a list of
+    tags on a share of the items and a float32 vector."""
+    import pandas as pd
+
+    from lkpy_tpu_torch.data import DatasetBuilder
+
+    rng = np.random.default_rng(ATTR_SEED)
+    b = DatasetBuilder("bench-synthetic")
+    b.add_interactions(
+        "interaction", pd.DataFrame({"user_id": split["tr_u"], "item_id": split["tr_i"]}), entities=["user", "item"],
+        missing="insert", default=True,
+    )  # fmt: skip
+    items = np.unique(split["tr_i"])
+    b.add_scalar_attribute("item", "category", items, rng.integers(0, ATTR_CATEGORIES, size=len(items)).astype(np.int64))
+    tagged = rng.choice(items, size=int(len(items) * ATTR_LIST_SHARE), replace=False)
+    b.add_list_attribute("item", "tags", tagged, [rng.integers(0, 100, size=rng.integers(1, 5)).tolist() for _ in tagged])
+    b.add_vector_attribute("item", "embedding", items, rng.standard_normal((len(items), ATTR_WIDTH)).astype(np.float32))
+    return b.build()
+
+
+def check_same_dataset(label: str, got, want) -> None:
+    """Equal interaction tables, vocabularies and entity attributes."""
+    gt, wt = got.interaction_table(), want.interaction_table()
+    if list(gt.columns) != list(wt.columns) or any(not np.array_equal(gt[c].to_numpy(), wt[c].to_numpy()) for c in wt.columns):
+        raise AssertionError(f"{label}: the interaction table differs")
+    for name in ("user", "item"):
+        ge, we = got.entities(name), want.entities(name)
+        if not np.array_equal(ge.ids(), we.ids()) or ge.attribute_names != we.attribute_names:
+            raise AssertionError(f"{label}: the {name} vocabulary or attribute names differ")
+        for attr in we.attribute_names:
+            g, w = ge.attribute(attr).to_numpy(), we.attribute(attr).to_numpy()
+            if w.dtype != object:
+                same = np.array_equal(g, w, equal_nan=True)
+            else:
+                same = len(g) == len(w) and all(
+                    (a is None and b is None) or (a is not None and b is not None and np.array_equal(np.asarray(a), np.asarray(b)))
+                    for a, b in zip(g, w)
+                )
+            if not same:
+                raise AssertionError(f"{label}: the {name} attribute {attr!r} differs")
+
+
+def solve_case(label: str, B: int, k: int, dev, seed: int) -> dict:
+    """B1 against its plain version and a float64 solve on SPD systems at a
+    training chunk's shape (the kernel phase's inputs and tolerances), timed
+    beside the plain version and ``cholesky`` + ``cholesky_solve``."""
+    from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
+
+    A, y = spd_inputs(np.random.default_rng(seed), B, k, dev)
+    x = spd_solve_chunked(A, y)
+    p = spd_solve_chunked_plain(A, y)
+    torch.cuda.synchronize()
+    abs_err = float((x - p).abs().max())
+    rel_err = abs_err / float(p.abs().max())
+    x64 = torch.linalg.solve(A.double(), y.double())
+    err64 = float((x.double() - x64).abs().max() / x64.abs().max())
+    if not (rel_err <= 1e-5 and err64 <= 1e-4):
+        raise AssertionError(f"spd_solve_chunked {label} ({B}, {k}): vs plain {rel_err}, vs float64 {err64}")
+    ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=20)
+    plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=3, warm=1)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
+    bound_ms, bound_by = spd_bound(B, k)
+    log(
+        f"spd_solve_chunked {label} ({B}, {k}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cholesky+cholesky_solve {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}); vs plain max abs {abs_err:.3e} rel {rel_err:.3e}, vs float64 {err64:.3e}"
+    )
+    return dict(label=label, shape=[B, k], max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def rel_frobenius(a, b) -> float:
+    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+
+def data_config_phase(dev, split: dict) -> dict:
+    """The data layer and the runtime core on the card: bench.py's training
+    split built with item attributes, saved, loaded back three ways (eager,
+    lazy, through ``DataContainer``); ``topn_pipeline(ImplicitMFScorer)``
+    trained on the lazy copy under ``configure(training_perf={"ladder_ratio":
+    2.0})`` (B1 and G once a chunk of the 2.0 plan, held against their plain
+    versions at its largest user and widest item chunks; one epoch at both
+    ladders from the same tables); ``batch.recommend`` of the test users
+    (NDCG@10 against the pipeline phase's) and again under
+    ``configure(serving={"readback_precision": "f16"})``; checkpoint and
+    resume through ``state``; host negative sampling checked by exact
+    membership.  Returns the launches of the training, serving and
+    checkpoint paths."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import lkpy_tpu_torch
+    from lkpy_tpu_torch import state
+    from lkpy_tpu_torch.batch import recommend
+    from lkpy_tpu_torch.config import configure
+    from lkpy_tpu_torch.data import ArrayTopNILC, DataContainer, Dataset
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    tmp = tempfile.mkdtemp(prefix="lkpy-tpu-torch-data-")
+    try:
+        t = time.perf_counter()
+        built = attributed_dataset(split)
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        built.save(tmp)
+        save_s = time.perf_counter() - t
+        stored = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        t = time.perf_counter()
+        loaded = Dataset.load(tmp)
+        load_s = time.perf_counter() - t
+        thunk_calls = []
+
+        def thunk():
+            thunk_calls.append(1)
+            return Dataset.load(tmp)
+
+        lazy = Dataset(thunk)
+        t = time.perf_counter()
+        contained = DataContainer.load(tmp).dataset()
+        container_s = time.perf_counter() - t
+        log(
+            f"data: DatasetBuilder with 3 item attributes {build_s:.2f}s, {built.user_count} users x {built.item_count} items, "
+            f"{built.interaction_count} interactions; save {save_s:.2f}s ({stored / 2**20:.1f} MiB), Dataset.load {load_s:.2f}s, "
+            f"DataContainer.load().dataset() {container_s:.2f}s"
+        )
+        if thunk_calls:
+            raise AssertionError("the lazy dataset ran its thunk before its data was read")
+
+        # train on the lazy copy under the configured ladder
+        scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, weight=40.0, regularization=0.1, user_embeddings=True)
+        pipe = lkpy_tpu_torch.topn_pipeline(scorer, n=10)
+        plan_default = split["chunks_per_epoch"]
+        with configure(training_perf={"ladder_ratio": CONFIG_LADDER}):
+            plan = chunks_per_epoch(built)
+            zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pipe.train(lazy, TrainingOptions(rng=42))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+            trained = read_counts()
+            trainer = scorer.create_trainer(built, TrainingOptions(rng=42))
+        log(
+            f"config training: Pipeline.train on the lazy dataset under ladder_ratio {CONFIG_LADDER}, {train_s:.3f}s with set-up and "
+            f"the lazy load; launches {trained}; {plan} chunks an epoch (ladder 1.35: {plan_default})"
+        )
+        if len(thunk_calls) != 1:
+            raise AssertionError(f"the lazy dataset ran its thunk {len(thunk_calls)} times")
+        want = plan * EPOCHS
+        if trained["spd_solve_chunked"] != want or trained["gather_gram"] != want or trained["spd_solve"] or trained["gather_rows"]:
+            raise AssertionError(f"Pipeline.train at ladder {CONFIG_LADDER} must launch B1 and G once a chunk ({want}), no B2 or P: {trained}")
+        t = time.perf_counter()
+        for label, got in (("Dataset.load", loaded), ("lazy Dataset", lazy), ("DataContainer", contained)):
+            check_same_dataset(label, got, built)
+        log(f"the three loaded datasets equal the built one: tables, vocabularies, attributes ({time.perf_counter() - t:.1f}s)")
+        if sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets) != plan:
+            raise AssertionError("the trainer's chunks differ from the plan")
+        log("chunks at ladder %g: users %s" % (CONFIG_LADDER, [tuple(c.cols.shape) for c in trainer.u_buckets]))
+        log("chunks at ladder %g: items %s" % (CONFIG_LADDER, [tuple(c.cols.shape) for c in trainer.i_buckets]))
+
+        # B1 and G at the 2.0 plan's largest user chunk and widest item chunk
+        u_chunk = max(trainer.u_buckets, key=lambda c: c.cols.shape[1] * c.cols.shape[2])
+        i_chunk = max(trainer.i_buckets, key=lambda c: c.cols.shape[2])
+        solves = [
+            solve_case(f"ladder {CONFIG_LADDER} user chunk {tuple(u_chunk.cols.shape[1:])}", u_chunk.cols.shape[1], FEATURES, dev, 21),
+            solve_case(f"ladder {CONFIG_LADDER} widest item chunk {tuple(i_chunk.cols.shape[1:])}", i_chunk.cols.shape[1], FEATURES, dev, 22),
+        ]
+        grams = gram_chunk_cases(trainer, FEATURES, implicit=True)
+
+        # one epoch at each ladder from the same initial tables
+        default = scorer.create_trainer(built, TrainingOptions(rng=42))
+        if not (torch.equal(default.u_factors, trainer.u_factors) and torch.equal(default.i_factors, trainer.i_factors)):
+            raise AssertionError("the two ladders' trainers start from different tables")
+        epoch_ms = {}
+        for ratio, tr in ((CONFIG_LADDER, trainer), (1.35, default)):
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                float(tr.train_epoch())
+                times.append((time.perf_counter() - t) * 1e3)
+                if len(times) == 1:
+                    first = (tr.u_factors.clone(), tr.i_factors.clone())
+            epoch_ms[ratio] = (first, times)
+        (u2, i2), t2 = epoch_ms[CONFIG_LADDER]
+        (u1, i1), t1 = epoch_ms[1.35]
+        du, di = rel_frobenius(u2, u1), rel_frobenius(i2, i1)
+        log(
+            f"one epoch from the same tables, ladder {CONFIG_LADDER} against 1.35: relative Frobenius users {du:.3e}, items {di:.3e}; "
+            f"epoch ms (readback each) at {CONFIG_LADDER}: {t2}, at 1.35: {t1}; {plan} and {plan_default} chunks"
+        )
+        if not max(du, di) <= LADDER_EPOCH_TOL:
+            raise AssertionError(f"the two ladders' epochs differ by {max(du, di)} > {LADDER_EPOCH_TOL}")
+        del default
+
+        # serving: the test users through the device route, then with f16 scores
+        users = np.unique(split["test_u"])
+        blocks = -(-len(users) // SERVE_CHUNK)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recs = recommend(pipe, users, n=10)
+        serve_s = time.perf_counter() - t
+        served = read_counts()
+        if not isinstance(recs, ArrayTopNILC):
+            raise AssertionError("batch.recommend must take the device route")
+        if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["spd_solve_chunked"] or served["gather_rows"]:
+            raise AssertionError(f"config serving must launch B2 and G once a block ({blocks}), no B1 or P: {served}")
+        rec_users = [k[0] for k in recs.keys()]
+        nd = ndcg10(rec_users, [list(il.ids()) for il in recs.lists()], split["test_u"], split["test_i"])
+        log(
+            f"config serving: recommend of {len(users)} users {serve_s:.3f}s, launches {served}; NDCG@10 {nd:.4f} "
+            f"(the pipeline phase's at ladder 1.35: {split['pipeline_ndcg']:.4f})"
+        )
+        if not (nd >= NDCG_MIN and abs(nd - split["pipeline_ndcg"]) <= NDCG_PIPELINE_TOL):
+            raise AssertionError(f"NDCG@10 {nd} at ladder {CONFIG_LADDER} must be >= {NDCG_MIN} and within {NDCG_PIPELINE_TOL} of {split['pipeline_ndcg']}")
+        with configure(serving={"readback_precision": "f16"}):
+            half = recommend(pipe, users, n=10)
+        top = np.finfo(np.float16).max
+        want16 = np.clip(recs._scores, -top, top).astype(np.float16).astype(np.float32)
+        same_lists = np.array_equal(half._lengths, recs._lengths) and all(
+            np.array_equal(half._nums[i, :n], recs._nums[i, :n]) for i, n in enumerate(recs._lengths)
+        )
+        same_scores = all(np.array_equal(half._scores[i, :n], want16[i, :n]) for i, n in enumerate(recs._lengths))
+        log(f"readback_precision f16: the same lists {same_lists}, scores equal to the float32 ones rounded to float16 {same_scores}")
+        if not (same_lists and same_scores):
+            raise AssertionError("readback_precision f16 must give the same lists with the float32 scores rounded to float16")
+
+        # checkpoint and resume: the ladder trainer goes on to CHECKPOINT_EPOCHS epochs, is checkpointed and
+        # trains as many again; a new trainer loads the checkpoint and trains as many, against it
+        ckpt = f"{tmp}/als-checkpoint.npz"
+        while trainer.epochs_trained < CHECKPOINT_EPOCHS:
+            trainer.train_epoch()
+        state.save_parameters(trainer, ckpt)
+        for _ in range(CHECKPOINT_EPOCHS):
+            trainer.train_epoch()
+        with configure(training_perf={"ladder_ratio": CONFIG_LADDER}):
+            zero_counts()
+            resumed = scorer.create_trainer(loaded, TrainingOptions(rng=7))
+            state.load_parameters(resumed, ckpt)
+            for _ in range(CHECKPOINT_EPOCHS):
+                resumed.train_epoch()
+            torch.cuda.synchronize()
+            checkpoint = read_counts()
+        du, di = rel_frobenius(resumed.u_factors, trainer.u_factors), rel_frobenius(resumed.i_factors, trainer.i_factors)
+        bits = torch.equal(resumed.u_factors, trainer.u_factors) and torch.equal(resumed.i_factors, trainer.i_factors)
+        deltas = (float(resumed.last_delta), float(trainer.last_delta))
+        log(
+            f"checkpoint ({os.path.getsize(ckpt) / 2**20:.1f} MiB) after {CHECKPOINT_EPOCHS} epochs and resume for {CHECKPOINT_EPOCHS} "
+            f"in a new trainer against {2 * CHECKPOINT_EPOCHS} straight: relative Frobenius users {du:.3e}, items {di:.3e}, "
+            f"equal to the bit {bits}; epochs_trained {resumed.epochs_trained} and {trainer.epochs_trained}; last_delta {deltas}; "
+            f"launches of the resumed trainer {checkpoint}"
+        )
+        if not (isinstance(resumed.last_delta, torch.Tensor) and resumed.last_delta.device.type == dev.type):
+            raise AssertionError("last_delta must stay a device scalar until read")
+        if not max(du, di) <= RESUME_TOL:
+            raise AssertionError(f"the resumed tables differ from {2 * CHECKPOINT_EPOCHS} straight epochs by {max(du, di)}")
+        if (resumed.epochs_trained, trainer.epochs_trained) != (CHECKPOINT_EPOCHS, 2 * CHECKPOINT_EPOCHS):
+            raise AssertionError("epochs_trained must count each trainer's epochs")
+        if not (np.isfinite(deltas).all() and abs(deltas[0] - deltas[1]) <= 1e-3 * abs(deltas[1])):
+            raise AssertionError(f"last_delta must be finite and the resumed one the straight one's: {deltas}")
+        want = CHECKPOINT_EPOCHS * plan
+        if checkpoint["spd_solve_chunked"] != want or checkpoint["gather_gram"] != want or checkpoint["spd_solve"] or checkpoint["gather_rows"]:
+            raise AssertionError(f"the resumed trainer must launch B1 and G once a chunk ({want}): {checkpoint}")
+        del trainer, resumed
+
+        # host negative sampling, each sample held against the CSR by exact membership
+        matrix = loaded.interaction_matrix()
+        csr = matrix.csr_structure()
+        pairs = np.repeat(np.arange(csr.nrows, dtype=np.int64), csr.row_lengths()) * csr.ncols + csr.colind
+        rows = np.random.default_rng(ATTR_SEED).choice(csr.nrows, size=NEG_USERS, replace=False)
+        for weighting in ("uniform", "popularity"):
+            t = time.perf_counter()
+            neg = matrix.sample_negatives(rows, n=NEG_N, weighting=weighting, verify=True, rng=np.random.default_rng(ATTR_SEED))
+            took = time.perf_counter() - t
+            keys = rows[:, None] * csr.ncols + neg
+            at = np.minimum(np.searchsorted(pairs, keys), len(pairs) - 1)
+            positives = int((pairs[at] == keys).sum())
+            log(f"sample_negatives {weighting}: {neg.shape} in {took:.3f}s, {positives} training positives by exact membership")
+            if neg.shape != (NEG_USERS, NEG_N) or positives or neg.min() < 0 or neg.max() >= csr.ncols:
+                raise AssertionError(f"sample_negatives {weighting}: {positives} positives among {neg.shape} samples")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split["data_config"] = dict(solves=solves, grams=grams, plan=plan, plan_default=plan_default, ndcg=nd)
+    return {"config_training": trained, "config_serving": served, "config_checkpoint": checkpoint}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2882,23 +3226,33 @@ def main() -> int:
         log(card)
         return 0
 
+    phase_s: dict[str, float] = {"build": time.perf_counter() - t_start}
+
+    def phase(name: str, fn, *args):
+        """Run one phase and log its wall time."""
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f}s")
+        return out
+
     # plain_tol 1e-5: the register route rounds otherwise than the plain version (fmaf, a reciprocal of the
     # pivot); on these well-conditioned systems (eigenvalues in about [1, 5]) they differ by under 1e-6
-    spd = solve_kernel_phase(
-        "spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, 1e-5, 7, dev,
-        previous=lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]), route_of=lambda B, k: "%s x%d" % fold_route(B, k),
+    spd = phase(
+        "spd_solve", solve_kernel_phase, "spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE,
+        1e-5, 7, dev, lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]), lambda B, k: "%s x%d" % fold_route(B, k),
     )  # fmt: skip
-    spd.update(fold_grid_phase(dev))
-    chunked = solve_kernel_phase(
-        "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES, CHUNKED_MAIN_SHAPE,
-        CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev, previous=lambda A, y: launch_chunked(A, y, "shared"),
-        route_of=lambda N, k: solve_route(k),
+    spd.update(phase("fold_grid", fold_grid_phase, dev))
+    chunked = phase(
+        "spd_solve_chunked", solve_kernel_phase, "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES,
+        CHUNKED_MAIN_SHAPE, CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev, lambda A, y: launch_chunked(A, y, "shared"),
+        lambda N, k: solve_route(k),
     )  # fmt: skip
-    singular_neighbours_phase(dev)
+    phase("singular_neighbours", singular_neighbours_phase, dev)
     chunked["register_route"] = [register_route_info(k) for k in (32, 64, 96, 128)]
     log(f"spd_solve_chunked register route as compiled: {chunked['register_route']}")
-    topk = topk_kernel_phase(dev)
-    gather_probe = gather_kernel_phase(dev)
+    topk = phase("topk_kernel", topk_kernel_phase, dev)
+    gather_probe = phase("gather_kernel", gather_kernel_phase, dev)
     candidates = next(r for r in gather_probe if r["label"] == f"per-query ({N_ITEMS}, {FEATURES}) x {N_ITEMS - 103}")
 
     # bench.py's interactions, made once; each path continues the generator
@@ -2907,23 +3261,25 @@ def main() -> int:
     rng = np.random.default_rng(42)
     users, items = synth_interactions(rng)
     state = rng.bit_generator.state
-    log(f"interactions: {len(users)} ({time.perf_counter() - t0:.1f}s to generate)")
+    phase_s["interactions"] = time.perf_counter() - t0
+    log(f"interactions: {len(users)} ({phase_s['interactions']:.1f}s to generate)")
 
     def continued() -> np.random.Generator:
         g = np.random.default_rng()
         g.bit_generator.state = state
         return g
 
-    serving, full = slice_phase(dev, users, items, continued())
-    training, served, split = training_phase(dev, users, items, continued())
+    serving, full = phase("serving", slice_phase, dev, users, items, continued())
+    training, served, split = phase("training", training_phase, dev, users, items, continued())
     # the later phases draw on from the generator where the split left it, as bench.py does
-    retrieval = retrieval_phase(dev, split["scorer"], split["rng"])
-    explicit_training, explicit_serving = explicit_phase(dev, split, split["rng"])
-    pipeline_training, pipeline_serving, pipeline_per_query = pipeline_phase(dev, split)
-    evaluation_training, evaluation_serving, explicit_evaluation = evaluation_phase(dev, full, split["rng"])
-    knn_builds = knn_build_phase(dev, split)
-    item_item = item_item_phase(dev, split)
-    gradient = gradient_phase(dev, split)
+    retrieval = phase("retrieval", retrieval_phase, dev, split["scorer"], split["rng"])
+    explicit_training, explicit_serving = phase("explicit", explicit_phase, dev, split, split["rng"])
+    pipeline_training, pipeline_serving, pipeline_per_query = phase("pipeline", pipeline_phase, dev, split)
+    data_config = phase("data_config", data_config_phase, dev, split)
+    evaluation_training, evaluation_serving, explicit_evaluation = phase("evaluation", evaluation_phase, dev, full, split["rng"])
+    knn_builds = phase("knn_build", knn_build_phase, dev, split)
+    item_item = phase("item_item", item_item_phase, dev, split)
+    gradient = phase("gradient", gradient_phase, dev, split)
 
     paths = {
         "serving": serving,
@@ -2938,6 +3294,7 @@ def main() -> int:
         "evaluation_training": evaluation_training,
         "evaluation_serving": evaluation_serving,
         "explicit_evaluation": explicit_evaluation,
+        **data_config,
         **knn_builds,
         **item_item,
         **gradient,
@@ -2951,6 +3308,8 @@ def main() -> int:
         ("evaluation_training", "gather_rows"), ("evaluation_training", "spd_solve"), ("evaluation_serving", "spd_solve"),
         ("evaluation_serving", "gather_gram"), ("explicit_evaluation", "spd_solve_chunked"),
         ("explicit_evaluation", "gather_gram"), ("explicit_evaluation", "gather_rows"), ("explicit_evaluation", "spd_solve"),
+        ("config_training", "spd_solve_chunked"), ("config_training", "gather_gram"), ("config_serving", "spd_solve"),
+        ("config_serving", "gather_gram"), ("config_checkpoint", "spd_solve_chunked"), ("config_checkpoint", "gather_gram"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
@@ -2972,6 +3331,7 @@ def main() -> int:
             launches=training["spd_solve_chunked"],
             launches_by_path={p: c["spd_solve_chunked"] for p, c in paths.items()},
             **chunked,
+            ladder_shapes=split["data_config"]["solves"],
         ),
         dict(
             name="mips_topk",
@@ -3010,9 +3370,12 @@ def main() -> int:
             **{k: v for k, v in split["gram"][0].items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=split["gram"][0]["label"],
             shapes=split["gram"],
+            ladder_shapes=split["data_config"]["grams"],
         ),
     ]
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s after the start of the checks")
+    phase_s["total"] = time.perf_counter() - t_start
+    log("phase seconds: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
+    log(f"chip_smoke: {phase_s['total']:.1f}s after the start of the checks")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(

@@ -18,6 +18,7 @@ import torch
 
 from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.batch.serving import PendingServe, enqueue_serve
+from lkpy_tpu_torch.config import lkpy_tpu_config
 from lkpy_tpu_torch.data import ArrayTopNILC, ItemListCollection, MatrixRelationshipSet
 
 __all__ = [
@@ -147,17 +148,24 @@ def try_device_recommend(pipeline, users, n: int | None, *, exact=None) -> ItemL
 
 class PendingRecommend:
     """An enqueued batch-recommend call; ``result()`` waits for the
-    readback and assembles the :class:`ItemListCollection`."""
+    readback and assembles the :class:`ItemListCollection`.  With
+    ``f16`` the scores are rounded to float16 there, finite ones clamped to
+    its range first, as the JAX package's compact readback returns them."""
 
-    def __init__(self, pending: PendingServe, user_ids, nums, key_field, items_vocab):
+    def __init__(self, pending: PendingServe, user_ids, nums, key_field, items_vocab, f16: bool = False):
         self._pending = pending
         self._user_ids = user_ids
         self._nums = nums
         self._key_field = key_field
         self._items_vocab = items_vocab
+        self._f16 = f16
 
     def result(self) -> ItemListCollection:
         scores_s, idx_s, order = self._pending.finalize()
+        if self._f16:
+            top = np.finfo(np.float16).max
+            scores_s = np.where(np.isfinite(scores_s), np.clip(scores_s, -top, top), scores_s)
+            scores_s = scores_s.astype(np.float16).astype(np.float32)
         user_ids, nums = self._user_ids, self._nums
         n = idx_s.shape[1]  # may be < requested n for tiny catalogs
         N = len(user_ids)
@@ -202,12 +210,18 @@ def device_recommend_async(
         matrix: the training interaction matrix (for history exclusion and
             user/item vocabularies).
         chunk: users per block.
-        exact: accepted for compatibility with the JAX package; the top-n is
-            exact either way (exact recall meets any recall target of the
-            TPU's approximate path).
+        exact: accepted for compatibility with the JAX package, as is the
+            settings' ``serving.exact``; the top-n is exact either way
+            (exact recall meets any recall target of the TPU's approximate
+            path).
         device: where to run; the card unless ``device="cpu"``.
+
+    ``serving.readback_precision = "f16"`` in the settings returns the
+    scores rounded to float16, the JAX package's compact readback; the
+    lists are the same.
     """
     dev = resolve_device(device)
+    serving = lkpy_tpu_config().serving
     arrays = _extract_arrays(scorer)
     if arrays is None:
         raise TypeError(f"{type(scorer).__name__} does not support device batch scoring")
@@ -261,4 +275,4 @@ def device_recommend_async(
         u_bias=u_bias_t,
         block=chunk,
     )
-    return PendingRecommend(pending, user_ids, nums, key_field, items_vocab)
+    return PendingRecommend(pending, user_ids, nums, key_field, items_vocab, f16=serving.readback_precision == "f16")

@@ -1,10 +1,11 @@
 """
 DatasetBuilder: incremental dataset construction.
 
-Port of the entity and relationship parts of ``lkpy_tpu/data/builder.py``
-(reference: src/lenskit/data/_builder.py:65): ``add_entities``,
-``add_relationships``, ``add_interactions`` and ``build``.  Built
-vocabularies are sorted, so both packages number the same IDs alike.
+Port of ``lkpy_tpu/data/builder.py`` (reference:
+src/lenskit/data/_builder.py:65): entities, relationships and interactions,
+scalar, list and vector attributes, ``filter_interactions``,
+``binarize_ratings``, ``build`` and ``save``.  Built vocabularies are
+sorted, so both packages number the same IDs alike.
 """
 
 from __future__ import annotations
@@ -41,11 +42,15 @@ class DatasetBuilder:
     def __init__(self, name: str | None = None):
         self.schema = DataSchema(name=name)
         self._ids: dict[str, np.ndarray] = {}  # entity -> id array (insertion order)
+        self._attrs: dict[str, dict[str, pd.Series]] = {}  # entity -> name -> values by number
         self._tables: dict[str, pd.DataFrame] = {}  # relationship -> table with *_num cols
 
     @property
     def name(self) -> str | None:
         return self.schema.name
+
+    def entity_classes(self) -> dict[str, EntitySchema]:
+        return self.schema.entities
 
     def add_entities(
         self,
@@ -67,6 +72,7 @@ class DatasetBuilder:
         else:
             self.schema.entities[cls] = EntitySchema(id_type="str" if ids.dtype.kind in "UO" else "int")
         self._ids[cls] = ids
+        self._attrs.setdefault(cls, {})
 
     def _vocab(self, cls: str) -> Vocabulary:
         return Vocabulary(self._ids.get(cls, np.array([], dtype=np.int64)), cls, reorder=False)
@@ -169,8 +175,81 @@ class DatasetBuilder:
         if default or not self.schema.default_interaction:
             self.schema.default_interaction = cls
 
+    def add_scalar_attribute(self, cls: str, name: str, entities, values=None) -> None:
+        """Attach a scalar attribute to entities."""
+        if values is None and isinstance(entities, pd.Series):
+            values = entities.to_numpy()
+            entities = entities.index.to_numpy()
+        vocab = self._vocab(cls)
+        nums = vocab.numbers(entities)
+        col = pd.Series(index=range(len(vocab)), dtype=pd.Series(np.asarray(values)).dtype)
+        col.iloc[nums] = np.asarray(values)
+        self._attrs[cls][name] = col
+        self.schema.entities[cls].attributes[name] = ColumnSpec(layout=AttrLayout.SCALAR)
+
+    def add_list_attribute(self, cls: str, name: str, entities, values) -> None:
+        vocab = self._vocab(cls)
+        nums = vocab.numbers(entities)
+        col = pd.Series([None] * len(vocab), dtype=object)
+        for n, v in zip(nums, values):
+            col.iloc[n] = list(v)
+        self._attrs[cls][name] = col
+        self.schema.entities[cls].attributes[name] = ColumnSpec(layout=AttrLayout.LIST)
+
+    def add_vector_attribute(self, cls: str, name: str, entities, values) -> None:
+        values = np.asarray(values)
+        vocab = self._vocab(cls)
+        nums = vocab.numbers(entities)
+        mat = np.full((len(vocab), values.shape[1]), np.nan, dtype=values.dtype if values.dtype.kind == "f" else np.float64)
+        mat[nums] = values
+        col = pd.Series(list(mat), dtype=object)
+        self._attrs[cls][name] = col
+        self.schema.entities[cls].attributes[name] = ColumnSpec(layout=AttrLayout.VECTOR, vector_size=values.shape[1])
+
+    def filter_interactions(self, cls: str | None = None, *, min_time=None, max_time=None, remove: pd.DataFrame | None = None):
+        """Filter interactions by time window or explicit pairs."""
+        cls = cls or self.schema.default_interaction
+        tbl = self._tables[cls]
+        keep = np.ones(len(tbl), dtype=bool)
+        if min_time is not None:
+            keep &= tbl["timestamp"].to_numpy() >= min_time
+        if max_time is not None:
+            keep &= tbl["timestamp"].to_numpy() < max_time
+        if remove is not None:
+            ent_cols = [num_col_name(e) for e in self.schema.relationships[cls].entities]
+            rm = remove.copy()
+            for e in self.schema.relationships[cls].entities:
+                if id_col_name(e) in rm.columns and num_col_name(e) not in rm.columns:
+                    rm[num_col_name(e)] = self._vocab(e).numbers(rm[id_col_name(e)].to_numpy())
+            merged = tbl[ent_cols].merge(rm[ent_cols].drop_duplicates(), on=ent_cols, how="left", indicator=True)
+            keep &= (merged["_merge"] == "left_only").to_numpy()
+        self._tables[cls] = tbl[keep].reset_index(drop=True)
+
+    def binarize_ratings(self, cls: str | None = None, *, min_rating: float = 0.0, method: Literal["zero", "remove"] = "remove"):
+        """Convert ratings to implicit feedback."""
+        cls = cls or self.schema.default_interaction
+        tbl = self._tables[cls]
+        r = tbl["rating"].to_numpy()
+        if method == "remove":
+            self._tables[cls] = tbl[r >= min_rating].drop(columns=["rating"]).reset_index(drop=True)
+            self.schema.relationships[cls].attributes.pop("rating", None)
+        else:
+            tbl = tbl.copy()
+            tbl["rating"] = (r >= min_rating).astype(np.float32)
+            self._tables[cls] = tbl
+
     def build(self) -> Dataset:
-        entities = {cls: EntitySet(cls, Vocabulary(ids, cls, reorder=True)) for cls, ids in self._ids.items()}
+        entities = {}
+        for cls, ids in self._ids.items():
+            vocab = Vocabulary(ids, cls, reorder=True)
+            # attributes from insertion order to the sorted numbers
+            remap = vocab.numbers(ids)
+            attrs = pd.DataFrame(index=range(len(vocab)))
+            for name, col in self._attrs.get(cls, {}).items():
+                out = pd.Series([None] * len(vocab), dtype=col.dtype if col.dtype != object else object)
+                out.iloc[remap] = col.to_numpy()
+                attrs[name] = out
+            entities[cls] = EntitySet(cls, vocab, attrs)
         tables = {}
         for cls, tbl in self._tables.items():
             out = tbl.copy()
@@ -179,3 +258,6 @@ class DatasetBuilder:
                 out[num_col_name(ent)] = entities[ent].vocabulary.numbers(old_ids)
             tables[cls] = out
         return Dataset(self.schema.model_copy(deep=True), entities, tables)
+
+    def save(self, path) -> None:
+        self.build().save(path)

@@ -10,15 +10,28 @@ serving path returns.
 
 from __future__ import annotations
 
+from os import PathLike
 from typing import Any, Iterator, Mapping, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
+import pyarrow.parquet as pq
 
 from lkpy_tpu_torch.data.items import ItemList
 from lkpy_tpu_torch.data.keys import create_key_type, project_key
 
-__all__ = ["ItemListCollection", "ItemListCollector", "ArrayTopNILC"]
+#: the schema metadata key holding the key fields of a saved collection
+#: (the JAX package's, so that either package reads the other's files)
+_KEY_META = b"lkpy_tpu_key"
+
+__all__ = [
+    "ItemListCollection",
+    "ItemListCollector",
+    "MutableItemListCollection",
+    "ListILC",
+    "ArrayTopNILC",
+]
 
 
 @runtime_checkable
@@ -33,15 +46,20 @@ class ItemListCollection:
     A collection of item lists, keyed by tuples of field values.
 
     Args:
-        key: the key field names (e.g. ``["user_id"]``).
+        key: the key field names (e.g. ``["user_id"]``), or a NamedTuple
+            class whose fields they are.
+        index: keep a key index for :meth:`lookup` (a collection built
+            without one can still be iterated).
     """
 
-    def __init__(self, key: Sequence[str] | None = None):
-        self._fields = tuple(key) if key is not None else ("user_id",)
+    def __init__(self, key: Sequence[str] | type | None = None, *, index: bool = True):
+        if key is None:
+            key = ["user_id"]
+        self._fields = tuple(key._fields if isinstance(key, type) else key)  # type: ignore[attr-defined]
         self._key_type = create_key_type(*self._fields)
         self._keys: list[tuple] = []
         self._lists: list[ItemList | None] = []
-        self._index: dict[tuple, int] = {}
+        self._index: dict[tuple, int] | None = {} if index else None
 
     @classmethod
     def empty(cls, key: Sequence[str] = ("user_id",)) -> "ItemListCollection":
@@ -83,9 +101,19 @@ class ItemListCollection:
             key = tuple(kwkey[f] for f in self._fields)
         if len(key) != len(self._fields):
             raise ValueError(f"expected {len(self._fields)} key fields, got {len(key)}")
-        self._keys.append(tuple(key))
+        k = tuple(key)
+        self._keys.append(k)
         self._lists.append(items)
-        self._index[tuple(key)] = len(self._keys) - 1
+        if self._index is not None:
+            self._index[k] = len(self._keys) - 1
+
+    def add_from(self, other: "ItemListCollection", **fields: Any) -> None:
+        """Add every list of ``other``, with fixed values for key fields
+        ``other`` lacks."""
+        for k, il in other.items():
+            kd = dict(zip(other.key_fields, k))
+            kd.update(fields)
+            self.add(il, *(kd[f] for f in self._fields))
 
     @property
     def key_fields(self) -> tuple[str, ...]:
@@ -100,9 +128,18 @@ class ItemListCollection:
         this to materialize lazily."""
         return self._lists[i]
 
-    def lookup(self, *key: Any) -> ItemList | None:
-        if len(key) == 1 and isinstance(key[0], tuple):
+    def _empty_keys(self) -> list[tuple]:
+        """Keys of the empty lists (array-backed subclasses answer this
+        from their length vector without materializing lists)."""
+        return [k for k, il in self.items() if len(il) == 0]
+
+    def lookup(self, *key: Any, **kwkey: Any) -> ItemList | None:
+        if kwkey:
+            key = tuple(kwkey[f] for f in self._fields)
+        elif len(key) == 1 and isinstance(key[0], tuple):
             key = key[0]
+        if self._index is None:
+            raise RuntimeError("collection is not indexed")
         idx = self._index.get(tuple(key))
         return self._list(idx) if idx is not None else None
 
@@ -151,6 +188,42 @@ class ItemListCollection:
             return pd.DataFrame(columns=[*self._fields, "item_id"])
         return pd.concat(frames, ignore_index=True)
 
+    def to_arrow(self) -> pa.Table:
+        return pa.Table.from_pandas(self.to_df(), preserve_index=False)
+
+    def save_parquet(self, path: str | PathLike) -> None:
+        """Save as Parquet in the long layout with key columns, the JAX
+        package's file format: an empty list is one row with a null
+        ``item_id``, and the key fields are in the schema's metadata."""
+        df = self.to_df()
+        empties = self._empty_keys()
+        if empties:
+            marks = pd.DataFrame(empties, columns=list(self._fields))
+            marks["item_id"] = None
+            df = pd.concat([df, marks], ignore_index=True)
+        tbl = pa.Table.from_pandas(df, preserve_index=False)
+        meta = dict(tbl.schema.metadata or {})
+        meta[_KEY_META] = ",".join(self._fields).encode()
+        pq.write_table(tbl.replace_schema_metadata(meta), path)
+
+    @classmethod
+    def load_parquet(cls, path: str | PathLike, key: Sequence[str] | None = None) -> "ItemListCollection":
+        """Load a collection written by :meth:`save_parquet` (of either
+        package); the key fields come from the file unless given."""
+        tbl = pq.read_table(path)
+        if key is None:
+            meta = tbl.schema.metadata or {}
+            if _KEY_META in meta:
+                key = meta[_KEY_META].decode().split(",")
+        df = tbl.to_pandas()
+        null_items = df["item_id"].isna() if "item_id" in df.columns else None
+        if null_items is not None and null_items.any():
+            ilc = cls.from_df(df[~null_items], key)
+            for _, row in df[null_items].iterrows():
+                ilc.add(ItemList(), *(row[f] for f in ilc.key_fields))
+            return ilc
+        return cls.from_df(df, key)
+
     def __repr__(self) -> str:
         return f"<ItemListCollection {self._fields} [{len(self)} lists]>"
 
@@ -196,6 +269,9 @@ class ArrayTopNILC(ItemListCollection):
     def add(self, items: ItemList, *key: Any, **kwkey: Any) -> None:
         raise TypeError("ArrayTopNILC is immutable")
 
+    def _empty_keys(self) -> list[tuple]:
+        return [self._keys[i] for i in np.nonzero(self._lengths == 0)[0]]
+
     def total_items(self) -> int:
         return int(self._lengths.sum())
 
@@ -214,3 +290,9 @@ class ArrayTopNILC(ItemListCollection):
         data["score"] = self._scores[rows, pos]
         data["rank"] = (pos + 1).astype(np.int32)
         return pd.DataFrame(data)
+
+
+#: the reference's names for the list-backed collection, the mutable one
+#: (reference: _collection/_list.py:27)
+MutableItemListCollection = ItemListCollection
+ListILC = ItemListCollection

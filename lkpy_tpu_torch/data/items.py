@@ -142,6 +142,13 @@ class ItemList:
         )
 
     @classmethod
+    def from_arrow(cls, tbl: pa.Table, *, vocabulary: Vocabulary | None = None) -> "ItemList":
+        return cls.from_df(tbl.to_pandas(), vocabulary=vocabulary)
+
+    def clone(self) -> "ItemList":
+        return ItemList(self)
+
+    @classmethod
     def from_vocabulary(cls, vocab: Vocabulary) -> "ItemList":
         """All items in a vocabulary, in number order (reference: _items.py:518)."""
         return cls(item_nums=np.arange(len(vocab), dtype=np.int32), vocabulary=vocab)
@@ -213,6 +220,10 @@ class ItemList:
             return arr
         if format == "torch":
             return torch.from_numpy(np.ascontiguousarray(arr))
+        if format == "arrow":
+            return pa.array(arr)
+        if format == "pandas":
+            return pd.Series(arr)
         raise ValueError(f"unknown format {format!r}")
 
     # ---- set / ranking operations ---------------------------------------
@@ -248,6 +259,21 @@ class ItemList:
         """A copy of this list with the given items removed (reference: _items.py:1072)."""
         mask = ~self.isin(items)
         return self._take(np.nonzero(mask)[0])
+
+    def concat(self, other: "ItemList") -> "ItemList":
+        """This list followed by ``other``, unordered; a field one list lacks
+        is NaN in its rows."""
+        fields = {}
+        for name in set(self._fields) | set(other._fields):
+            a = self.field(name)
+            b = other.field(name)
+            if a is None:
+                a = np.full(len(self), np.nan)
+            if b is None:
+                b = np.full(len(other), np.nan)
+            fields[name] = np.concatenate([a, b])
+        fields.pop("rank", None)
+        return ItemList(item_ids=np.concatenate([self.ids(), other.ids()]), vocabulary=self._vocab, **fields)
 
     def _take(self, idx: np.ndarray, *, ordered: bool | None = None) -> "ItemList":
         fields = {n: v[idx] for n, v in self._fields.items() if n != "rank"}
@@ -287,6 +313,9 @@ class ItemList:
         if self.ordered and "rank" not in cols:
             cols["rank"] = self.ranks()
         return pd.DataFrame(cols)
+
+    def to_arrow(self, *, ids: bool = True, numbers: bool = False) -> pa.Table:
+        return pa.Table.from_pandas(self.to_df(ids=ids, numbers=numbers), preserve_index=False)
 
     def __repr__(self) -> str:
         return f"<ItemList of {self._len} items{' (ordered)' if self.ordered else ''}>"

@@ -70,6 +70,19 @@ class CSR:
         s, e = self.row_extent(r)
         return self.colind[s:e]
 
+    def row_values(self, r: int) -> np.ndarray | None:
+        if self.values is None:
+            return None
+        s, e = self.row_extent(r)
+        return self.values[s:e]
+
+    def row_field(self, r: int, name: str) -> np.ndarray | None:
+        f = self.fields.get(name)
+        if f is None:
+            return None
+        s, e = self.row_extent(r)
+        return f[s:e]
+
     @classmethod
     def from_coo(
         cls,

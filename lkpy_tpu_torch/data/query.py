@@ -12,9 +12,13 @@ from typing import Any, TypeAlias
 
 from lkpy_tpu_torch.data.items import ItemList
 
-__all__ = ["RecQuery", "QueryInput"]
+__all__ = ["RecQuery", "QueryInput", "QueryItemSource"]
 
 QueryInput: TypeAlias = "RecQuery | int | str | ItemList | None"
+
+QueryItemSource: TypeAlias = "str"
+"""Valid sources for query items: ``"history" | "session" | "context"``
+(reference: _query.py:23)."""
 
 
 @dataclass(kw_only=True)

@@ -10,7 +10,7 @@ every ID the same number.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Iterator, Literal
+from typing import Any, Iterable, Iterator, Literal
 
 import numpy as np
 import pandas as pd
@@ -69,6 +69,11 @@ class Vocabulary:
         return self._ids
 
     @property
+    def index(self) -> pd.Index:
+        """The vocabulary as a Pandas index."""
+        return pd.Index(self._ids, name=self.name)
+
+    @property
     def size(self) -> int:
         return len(self._ids)
 
@@ -77,6 +82,9 @@ class Vocabulary:
 
     def __iter__(self) -> Iterator:
         return iter(self._ids)
+
+    def __contains__(self, key: Any) -> bool:
+        return self.number(key, missing="negative") >= 0
 
     def __eq__(self, other: object) -> bool:
         if self is other:
@@ -140,6 +148,21 @@ class Vocabulary:
         if nums is None:
             return self._ids
         return self._ids[np.asarray(nums)]
+
+    def terms(self, nums=None) -> np.ndarray:
+        """The reference's name for :meth:`id_array`."""
+        return self.id_array(nums)
+
+    def add_terms(self, keys: Iterable[Any]) -> "Vocabulary":
+        """A new vocabulary with the IDs not yet in this one appended
+        (vocabularies are immutable)."""
+        arr = _as_id_array(list(keys))
+        fresh = arr[self.numbers(arr, missing="negative") < 0]
+        if fresh.size == 0:
+            return self
+        if self._order is not None:
+            return Vocabulary(np.concatenate([self._ids, np.unique(fresh)]), self.name, reorder=False)
+        return Vocabulary(np.concatenate([self._ids, fresh]), self.name)
 
     def __repr__(self) -> str:
         return f"<Vocabulary {self.name or '?'} [{len(self)} IDs]>"

@@ -1,6 +1,6 @@
 """The port's model zoo (port of ``lkpy_tpu.models``): the ALS family, the
-bias model, the basic components, item and user kNN, EASE, and the
-gradient family (FlexMF, LightGCN)."""
+bias model, the basic components, item and user kNN, EASE, the gradient
+family (FlexMF, LightGCN) and stochastic ranking."""
 
 from lkpy_tpu_torch.models.als import BiasedMFScorer, ImplicitMFScorer
 from lkpy_tpu_torch.models.basic import (
@@ -8,6 +8,7 @@ from lkpy_tpu_torch.models.basic import (
     KnownRatingScorer,
     PopScorer,
     RandomSelector,
+    SoftmaxRanker,
     TimeBoundedPopScore,
     TopNRanker,
     TrainingItemsCandidateSelector,
@@ -23,6 +24,7 @@ from lkpy_tpu_torch.models.flexmf import (
 )
 from lkpy_tpu_torch.models.knn import ItemKNNScorer, UserKNNScorer
 from lkpy_tpu_torch.models.lightgcn import LightGCNConfig, LightGCNScorer
+from lkpy_tpu_torch.models.stochastic import StochasticTopNRanker
 
 __all__ = [
     "BiasedMFScorer",
@@ -43,6 +45,8 @@ __all__ = [
     "KnownRatingScorer",
     "PopScorer",
     "RandomSelector",
+    "SoftmaxRanker",
+    "StochasticTopNRanker",
     "TimeBoundedPopScore",
     "TopNRanker",
     "TrainingItemsCandidateSelector",

@@ -28,7 +28,7 @@ from pydantic import AliasChoices, BaseModel, Field
 from torch import nn
 
 from lkpy_tpu_torch._device import resolve_device
-from lkpy_tpu_torch.config import EmbeddingSizeMixin
+from lkpy_tpu_torch.config import EmbeddingSizeMixin, lkpy_tpu_config
 from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
 from lkpy_tpu_torch.models.bias import BiasModel, entity_damping
 from lkpy_tpu_torch.ops import als as als_ops
@@ -47,15 +47,8 @@ __all__ = [
     "ImplicitMFConfig",
     "ImplicitMFScorer",
     "ImplicitMFTrainer",
-    "LADDER_RATIO",
     "UIPair",
 ]
-
-#: ratio of the bucket-width ladder the trainers bucket rows with
-#: (:func:`lkpy_tpu_torch.ops.sparse.bucket_rows`); the JAX package's default
-#: ``TrainingPerfSettings.ladder_ratio`` (lkpy_tpu/config/__init__.py:126),
-#: kept here until the config layer is ported
-LADDER_RATIO = 1.35
 
 
 class UIPair(BaseModel):
@@ -170,9 +163,11 @@ class ALSBase(UsesTrainer, Component, nn.Module):
     def __call__(self, query: QueryInput, items: ItemList) -> ItemList:
         """Score ``items`` for one query where the tables lie: the user's row
         of the table, or a fold-in of the query's history (``user_items``)
-        unless ``user_embeddings="prefer"``; on the card the fold-in gathers
-        the history rows (P) and solves (B2), the candidates' rows are
-        gathered (P) and scored there, and only the scores come to the host.
+        unless ``user_embeddings="prefer"``; on the card the fold-in forms
+        its normal equations from the history rows in one launch
+        (``gather_gram``, in ``ops/als.py::solve_row_*``) and solves them
+        (B2), the candidates' rows alone are gathered (P) and scored there,
+        and only the scores come to the host.
         Unknown items, and every item for a user without row and history,
         score NaN."""
         query = RecQuery.create(query)
@@ -248,8 +243,10 @@ class ALSBase(UsesTrainer, Component, nn.Module):
 class ALSTrainerBase(ModelTrainer):
     """Half-epoch ALS driver (reference: als/_common.py:195, train_epoch :241).
 
-    The rows are bucketed and chunked once and stay on the training device
-    across epochs, with the factor tables."""
+    The rows are bucketed and chunked once, on the ladder of the settings'
+    ``training_perf.ladder_ratio``, and stay on the training device across
+    epochs, with the factor tables.  ``epochs_trained`` counts the epochs
+    and ``last_delta`` is the last epoch's update delta, a device scalar."""
 
     mode = "explicit"
 
@@ -260,15 +257,14 @@ class ALSTrainerBase(ModelTrainer):
         scorer.items = data.items
         self.rng = options.random_generator()
         self.device = options.configured_device()
+        self.epochs_trained = 0
+        self.last_delta: torch.Tensor | None = None
 
         ui_csr = self.prepare_matrix(data)
         iu_csr = ui_csr.transpose()
-        self.u_buckets = als_ops.chunk_buckets(
-            bucket_rows(ui_csr, field="rating", ratio=LADDER_RATIO), device=self.device
-        )
-        self.i_buckets = als_ops.chunk_buckets(
-            bucket_rows(iu_csr, field="rating", ratio=LADDER_RATIO), device=self.device
-        )
+        ratio = lkpy_tpu_config().training_perf.ladder_ratio
+        self.u_buckets = als_ops.chunk_buckets(bucket_rows(ui_csr, field="rating", ratio=ratio), device=self.device)
+        self.i_buckets = als_ops.chunk_buckets(bucket_rows(iu_csr, field="rating", ratio=ratio), device=self.device)
 
         # users first, then items: the JAX package draws them in this order
         k = self.config.embedding_size
@@ -285,7 +281,8 @@ class ALSTrainerBase(ModelTrainer):
     # epoch loop -----------------------------------------------------------
     def train_epoch(self) -> torch.Tensor:
         """Both halves of one epoch; returns the update delta as a device
-        scalar, so the host can queue the next epoch while this one runs."""
+        scalar (also kept as ``last_delta``), so the host can queue the next
+        epoch while this one runs."""
         self.u_factors, self.i_factors, du, di = als_ops.als_epoch(
             self.u_buckets,
             self.i_buckets,
@@ -295,7 +292,9 @@ class ALSTrainerBase(ModelTrainer):
             self.config.item_reg,
             mode=self.mode,
         )
-        return du + di
+        self.epochs_trained += 1
+        self.last_delta = du + di
+        return self.last_delta
 
     def _half_epoch(self, side: str) -> float:
         if side == "user":

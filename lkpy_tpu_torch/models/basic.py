@@ -3,11 +3,11 @@ Baseline / utility components.
 
 Port of ``lkpy_tpu/models/basic.py`` (reference: src/lenskit/basic/):
 ``PopScorer``/``TimeBoundedPopScore`` (popularity.py:36,101), ``TopNRanker``
-(topn.py:32), ``RandomSelector`` (random.py:27),
+(topn.py:32), ``RandomSelector`` (random.py:27), ``SoftmaxRanker``
+(stochastic/_ranker.py:59),
 ``UserTrainingHistoryLookup``/``KnownRatingScorer`` (history.py:37,112),
 ``TrainingItemsCandidateSelector`` (candidates.py:50), ``FallbackScorer``
 (composite.py:19).  They run on the host with NumPy, as in the JAX package.
-``SoftmaxRanker`` waits for the port of the stochastic models.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from pydantic import BaseModel
 
 from lkpy_tpu_torch.data import Dataset, ItemList, MatrixRelationshipSet, QueryInput, RecQuery, Vocabulary
 from lkpy_tpu_torch.lazy import Lazy
+from lkpy_tpu_torch.models.stochastic import stochastic_rank
 from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.random import derive_seed, random_generator
 from lkpy_tpu_torch.training import TrainingOptions
@@ -32,6 +33,8 @@ __all__ = [
     "TopNConfig",
     "TopNRanker",
     "RandomSelector",
+    "SoftmaxConfig",
+    "SoftmaxRanker",
     "UserTrainingHistoryLookup",
     "KnownRatingScorer",
     "TrainingItemsCandidateSelector",
@@ -173,6 +176,26 @@ class RandomSelector(Component):
         rng = random_generator(seed)
         picks = rng.choice(len(items), size=n, replace=False) if len(items) else np.array([], dtype=int)
         return items[picks]
+
+
+class SoftmaxConfig(BaseModel):
+    n: int = -1
+    rng: int | None = None
+
+
+class SoftmaxRanker(Component):
+    """Stochastic ranking by softmax-weighted sampling without replacement
+    (:func:`lkpy_tpu_torch.models.stochastic.stochastic_rank`, scale 1),
+    seeded from the configured ``rng`` and the query's user."""
+
+    config: SoftmaxConfig
+
+    def __call__(self, items: ItemList, query: QueryInput = None, n: int | None = None) -> ItemList:
+        if n is None or n < 0:
+            n = self.config.n
+        query = RecQuery.create(query)
+        seed = derive_seed("SoftmaxRanker", query.user_id, base=self.config.rng)
+        return stochastic_rank(items, n, seed)
 
 
 # ---------------------------------------------------------------------------

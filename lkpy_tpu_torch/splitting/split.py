@@ -61,8 +61,8 @@ def dataset_from_rows(src: Dataset, mask: np.ndarray, *, name: str | None = None
     """
     Build a training dataset from a row mask over the interaction table,
     keeping the *full* entity vocabularies (so item/user numbers stay
-    comparable across train/test, like the reference's splits).  The port's
-    entity sets carry no attributes yet, so there are none to copy over.
+    comparable across train/test, like the reference's splits), with the
+    source's entity attributes.
     """
     rel_name = src.default_interaction_class
     tbl = src.interactions().pandas()
@@ -72,7 +72,11 @@ def dataset_from_rows(src: Dataset, mask: np.ndarray, *, name: str | None = None
     for ent in src.schema.relationships[rel_name].entity_classes.values():
         dsb.add_entities(ent, src.entities(ent).vocabulary.ids)
     dsb.add_interactions(rel_name, sub, entities=list(src.schema.relationships[rel_name].entities), default=True)
-    return dsb.build()
+    ds = dsb.build()
+    # the builder sorts the same ID sets, so the vocabularies are the source's
+    for ent_name, es in ds._entities.items():
+        es._attributes = src.entities(ent_name)._attributes
+    return ds
 
 
 def _test_lists(src: Dataset, test_mask: np.ndarray) -> ItemListCollection:

@@ -75,8 +75,10 @@ class TrainingOptions:
     def random_generator(self) -> np.random.Generator:
         return random_generator(self.rng)
 
-    def configured_device(self) -> torch.device:
-        """The device training runs on: the card unless :attr:`device` says otherwise."""
+    def configured_device(self, *, use_default_rng: bool = False) -> torch.device:
+        """The device training runs on: the card unless :attr:`device` says
+        otherwise.  ``use_default_rng`` is the JAX package's keyword and, as
+        there, changes nothing."""
         return resolve_device(self.device)
 
 

@@ -6,9 +6,10 @@ bench.py's section 6, the gradient family, alone on one NVIDIA GPU.
 Makes ``chip_smoke.py``'s data (bench.py's synthetic interactions and split,
 138,000 users x 27,000 items, seed 42) and runs its ``gradient_phase``:
 FlexMF-BPR (k = 64, batch 32,768, 5 epochs, NDCG@10 against the popularity
-ranking), LightGCN (2 epochs, a profile of 5 steps, one propagation against
-float64, both propagation routes timed) and the WARP pipeline, with every
-check of that phase.  Builds no kernel: these paths launch none.  Prints
+ranking, a profiled epoch, the host Bloom build timed alone), LightGCN (2
+epochs, a profile of 5 steps, one propagation against float64, the CSR, the
+dense bf16 and ``torch.sparse.mm``'s own backward routes timed) and the
+WARP pipeline, with every check of that phase (``chip_smoke.PROFILES`` on).  Builds no kernel: these paths launch none.  Prints
 the card's name and power limit first and last.
 """
 
@@ -45,6 +46,7 @@ def main() -> int:
     ds = from_interactions_df(pd.DataFrame({"user_id": users[mask], "item_id": items[mask]}))
     cs.log(f"bench.py's split: {int(mask.sum())} training, {len(test_u)} held-out interactions ({time.perf_counter() - t:.1f}s)")
     split = dict(ds=ds, tr_u=users[mask], tr_i=items[mask], test_u=test_u, test_i=test_i)
+    cs.PROFILES = True
     paths = cs.gradient_phase(torch.device("cuda"), split)
     cs.log(f"launches by path: {paths}")
     cs.log(card)

@@ -890,3 +890,78 @@ def test_gradient_scorers_train_and_serve_on_card_by_default(cuda, kind):
         il = recs.lookup(user)
         scores = scorer(user, items).scores()
         np.testing.assert_allclose(il.scores(), scores[ds.items.numbers(il.ids())], rtol=1e-5, atol=1e-6)
+
+
+def _ladder_frame(seed=11, n_users=3000, n_items=800):
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.zipf(1.4, size=n_users) + 3, n_items // 2)
+    users = np.repeat(np.arange(n_users), lens)
+    items = np.concatenate([rng.choice(n_items, size=n, replace=False) for n in lens])
+    return pd.DataFrame({"user_id": users, "item_id": items})
+
+
+def test_ladder_chunks_on_card_match_plain(cuda):
+    """G at the first chunk of every bucket of a small 2.0-ladder plan
+    against its plain version, B1 against its plain version on SPD systems
+    of each of those chunks' row counts, and both once a chunk in an
+    epoch."""
+    from lkpy_tpu_torch.config import configure
+
+    ds = from_interactions_df(_ladder_frame())
+    with configure(training_perf={"ladder_ratio": 2.0}):
+        trainer = ImplicitMFScorer(features=64, epochs=1).create_trainer(ds, TrainingOptions(rng=42))
+    chunks = sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets)
+    sides = [(c, trainer.i_factors, trainer.config.user_reg) for c in trainer.u_buckets]
+    sides += [(c, trainer.u_factors, trainer.config.item_reg) for c in trainer.i_buckets]
+    for chunk, right, reg in sides:
+        kw = dict(otor=implicit_otor(right, reg))
+        cols, vals, mask = chunk.cols[0], chunk.values[0], chunk.mask[0]
+        A, y = gather_gram(cols, vals, mask, right, **kw)
+        A2, y2 = gather_gram(cols, vals, mask, right, **kw)
+        _assert_gram_agrees(A, y, A2, y2, cols, vals, mask, right, kw)
+        rng = np.random.default_rng(cols.shape[0] + cols.shape[1])
+        As, ys = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, cols.shape[0], right.shape[1]))
+        _assert_solves_agree(spd_solve_chunked(As, ys), spd_solve_chunked_plain(As, ys), As, ys)
+    before = (spd_solve_chunked.launches, gather_gram.launches)
+    trainer.train_epoch()
+    torch.cuda.synchronize()
+    assert (spd_solve_chunked.launches - before[0], gather_gram.launches - before[1]) == (chunks, chunks)
+
+
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    from lkpy_tpu_torch.state import load_parameters, save_parameters
+
+    ds = from_interactions_df(_ladder_frame(seed=12))
+    scorer = ImplicitMFScorer(features=64, epochs=4)
+    first = scorer.create_trainer(ds, TrainingOptions(rng=42))
+    for _ in range(2):
+        first.train_epoch()
+    save_parameters(first, tmp_path / "c.npz")
+    resumed = scorer.create_trainer(ds, TrainingOptions(rng=5))
+    load_parameters(resumed, tmp_path / "c.npz")
+    straight = scorer.create_trainer(ds, TrainingOptions(rng=42))
+    for _ in range(2):
+        resumed.train_epoch()
+    for _ in range(4):
+        straight.train_epoch()
+    assert resumed.u_factors.device.type == "cuda" and resumed.last_delta.device.type == "cuda"
+    assert (resumed.epochs_trained, straight.epochs_trained) == (2, 4)
+    for got, want in ((resumed.u_factors, straight.u_factors), (resumed.i_factors, straight.i_factors)):
+        assert float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double())) <= 1e-6
+
+
+def test_device_recommend_f16_readback_on_card(cuda):
+    from lkpy_tpu_torch.config import configure
+
+    ds = from_interactions_df(_ladder_frame(seed=13))
+    scorer = ImplicitMFScorer(features=64, epochs=2)
+    scorer.train(ds, TrainingOptions(rng=42))
+    users = ds.users.ids[::5]
+    before = spd_solve.launches
+    full = device_recommend(scorer, users, 20, ds.interaction_matrix())
+    with configure(serving={"readback_precision": "f16"}):
+        half = device_recommend(scorer, users, 20, ds.interaction_matrix())
+    assert spd_solve.launches - before == 2 * -(-len(users) // 1024)
+    for u in users:
+        np.testing.assert_array_equal(half.lookup(u).ids(), full.lookup(u).ids())
+        np.testing.assert_array_equal(half.lookup(u).scores(), full.lookup(u).scores().astype(np.float16).astype(np.float32))

@@ -223,6 +223,25 @@ for grad_scorer, data in ((FlexMFImplicitScorer(preset="warp", embedding_size=4,
     grad_pipe = lkpy_tpu_torch.topn_pipeline(grad_scorer, n=5)
     grad_pipe.train(data, TrainingOptions(rng=1, device="cpu"))
     assert recommend(grad_pipe, data.users.ids[:3], n=5).total_items() > 0
+# the data layer and runtime core: storage, the lazy dataset, settings, checkpoints, schema files, MTArray,
+# stochastic ranking
+import tempfile
+from lkpy_tpu_torch import schemas, state
+from lkpy_tpu_torch.config import configure, lkpy_tpu_config
+from lkpy_tpu_torch.data import Dataset
+from lkpy_tpu_torch.data.mtarray import MTArray
+from lkpy_tpu_torch.models.stochastic import StochasticTopNRanker
+with tempfile.TemporaryDirectory() as d:
+    rated.save(d)
+    with configure(training_perf={"ladder_ratio": 2.0}):
+        t = ImplicitMFScorer(features=4, epochs=1).create_trainer(Dataset(lambda: Dataset.load(d)), TrainingOptions(rng=1, device="cpu"))
+        t.train_epoch()
+    state.save_parameters(t, d + "/p.npz")
+    state.load_parameters(t, d + "/p.npz")
+    schemas.dump_model_data(lkpy_tpu_config(), d + "/s.toml")
+    assert schemas.load_model_data(d + "/s.toml", type(lkpy_tpu_config())).training_perf.ladder_ratio == 1.35
+assert int(MTArray(np.arange(3)).torch().sum()) == 3
+assert len(StochasticTopNRanker(n=2, rng=1)(ItemList(item_ids=[1, 2, 3], scores=[0.1, 0.2, 0.3]))) == 2
 # every module of the package, and the chip smoke script
 import importlib, pkgutil
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
