@@ -12,6 +12,7 @@ CSR, and a top-n — and the results come back as an
 from __future__ import annotations
 
 import weakref
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -20,8 +21,12 @@ from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.batch.serving import PendingServe, enqueue_serve
 from lkpy_tpu_torch.config import lkpy_tpu_config
 from lkpy_tpu_torch.data import ArrayTopNILC, ItemListCollection, MatrixRelationshipSet
+from lkpy_tpu_torch.logging import Stopwatch, get_logger
+
+_log = get_logger(__name__)
 
 __all__ = [
+    "BatchScorer",
     "PendingRecommend",
     "device_recommend",
     "device_recommend_async",
@@ -29,6 +34,19 @@ __all__ = [
     "supports_device_batch",
     "try_device_recommend",
 ]
+
+
+@runtime_checkable
+class BatchScorer(Protocol):  # pragma: no cover - protocol
+    """Scorers that can score all items for a batch of users on the device."""
+
+    def batch_score_arrays(self) -> dict:
+        """Return the tables for batch scoring:
+        {"u_embed": (n_users, k), "i_embed": (n_items, k),
+         "u_bias": optional (n_users,), "i_bias": optional (n_items,),
+         "offset": optional scalar}."""
+        ...
+
 
 _dev_cache: dict = {}
 _DEV_CACHE_MAX = 32
@@ -47,14 +65,14 @@ def invalidate_device_cache() -> None:
     invalidate_all_residency()
 
 
-def _cached_device(arr, device: torch.device) -> torch.Tensor:
+def _cached_device(arr, device: torch.device, uploads: list | None = None) -> torch.Tensor:
     """Copy a host array to ``device`` once per array object.
 
     Keyed by object identity plus the buffer address, shape and dtype (so a
     reallocated array misses) and the device; an entry leaves when its array
     is collected, and the cache keeps at most ``_DEV_CACHE_MAX`` entries.
     Tensors are moved with ``.to(device)``, which is free where they
-    already are."""
+    already are.  A copy made here appends its bytes to ``uploads``."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device)
     arr = np.asarray(arr)
@@ -63,6 +81,8 @@ def _cached_device(arr, device: torch.device) -> torch.Tensor:
     if hit is not None and hit[0]() is arr:
         return hit[1]
     dev = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if uploads is not None:
+        uploads.append(arr.nbytes)
     # the cache is bound here: at interpreter exit the module's globals are gone before the last arrays
     ref = weakref.ref(arr, lambda _r, key=key, cache=_dev_cache: cache.pop(key, None))
     while len(_dev_cache) >= _DEV_CACHE_MAX:
@@ -82,8 +102,8 @@ def supports_device_batch(scorer) -> bool:
 
 def _extract_arrays(scorer) -> dict | None:
     """Pull the user and item tables (and any biases and score offset) out
-    of an embedding-family scorer: the ALS and LightGCN tables, or FlexMF's
-    ``params``."""
+    of an embedding-family scorer: the ALS, FunkSVD and LightGCN tables,
+    FlexMF's ``params``, or BiasedSVD's and NMF's components."""
     if hasattr(scorer, "batch_score_arrays"):
         return scorer.batch_score_arrays()
     if hasattr(scorer, "user_embeddings") and hasattr(scorer, "item_embeddings"):
@@ -106,6 +126,15 @@ def _extract_arrays(scorer) -> dict | None:
             if name in p:
                 out[name] = p[name]
         out["offset"] = scorer.score_offset()
+        return out
+    if hasattr(scorer, "user_components") and hasattr(scorer, "item_components"):
+        # BiasedSVD and NMF: the item table is the transposed (k, n_items) components
+        out = {"u_embed": scorer.user_components, "i_embed": scorer.item_components.T}
+        bias = getattr(scorer, "bias", None)
+        if bias is not None and getattr(bias, "user_biases", None) is not None:
+            out["u_bias"] = bias.user_biases
+            out["i_bias"] = bias.item_biases
+            out["offset"] = bias.global_bias
         return out
     return None
 
@@ -150,15 +179,27 @@ class PendingRecommend:
     """An enqueued batch-recommend call; ``result()`` waits for the
     readback and assembles the :class:`ItemListCollection`.  With
     ``f16`` the scores are rounded to float16 there, finite ones clamped to
-    its range first, as the JAX package's compact readback returns them."""
+    its range first, as the JAX package's compact readback returns them.
+    ``n`` is the requested list length and ``sw`` the call's
+    :class:`Stopwatch`, stopped when the lists are assembled."""
 
-    def __init__(self, pending: PendingServe, user_ids, nums, key_field, items_vocab, f16: bool = False):
+    def __init__(self, pending: PendingServe, user_ids, nums, n: int, key_field, items_vocab, sw: Stopwatch, f16: bool = False):
         self._pending = pending
         self._user_ids = user_ids
         self._nums = nums
+        self._n = n
         self._key_field = key_field
         self._items_vocab = items_vocab
+        self._sw = sw
         self._f16 = f16
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def sw(self) -> Stopwatch:
+        return self._sw
 
     def result(self) -> ItemListCollection:
         scores_s, idx_s, order = self._pending.finalize()
@@ -177,7 +218,17 @@ class PendingRecommend:
         # -inf (masked history) sorts to the tail, so the finite prefix is
         # the valid list; unknown users keep length 0 (empty lists)
         lengths[order] = np.isfinite(scores_s).sum(axis=1) * (nums[order] >= 0)
-        return ArrayTopNILC([self._key_field], list(user_ids), nums_out, scores_out, lengths, self._items_vocab)
+        ilc = ArrayTopNILC([self._key_field], list(user_ids), nums_out, scores_out, lengths, self._items_vocab)
+        self._sw.stop()
+        timings = self._pending.timings or {}
+        _log.info(
+            "device batch recommend",
+            users=N,
+            time=str(self._sw),
+            us_per_query=round(self._sw.elapsed() * 1e6 / max(N, 1), 1),
+            tunnel_ops=timings.get("tunnel_ops"),
+        )
+        return ilc
 
 
 def device_recommend(scorer, user_ids, n: int, matrix: MatrixRelationshipSet, **kw) -> ItemListCollection:
@@ -198,6 +249,7 @@ def device_recommend_async(
     key_field: str = "user_id",
     exact: bool | None = None,
     device: str | torch.device | None = None,
+    timings: dict | None = None,
 ) -> PendingRecommend:
     """
     Enqueue a batch top-N recommendation; returns a :class:`PendingRecommend`
@@ -215,12 +267,19 @@ def device_recommend_async(
             (exact recall meets any recall target of the TPU's approximate
             path).
         device: where to run; the card unless ``device="cpu"``.
+        timings: a dict that ``result()`` fills with the JAX package's keys:
+            ``enqueue_s`` and ``readback_s`` on the host clock, ``trace``, a
+            list of ``(label, seconds, bytes)`` with one entry for each copy
+            between host and device in the call (the training CSR's upload
+            where it is not resident yet, the user numbers, the readback),
+            and ``tunnel_ops``, the count of those copies.
 
     ``serving.readback_precision = "f16"`` in the settings returns the
     scores rounded to float16, the JAX package's compact readback; the
     lists are the same.
     """
     dev = resolve_device(device)
+    sw = Stopwatch()
     serving = lkpy_tpu_config().serving
     arrays = _extract_arrays(scorer)
     if arrays is None:
@@ -274,5 +333,7 @@ def device_recommend_async(
         u_table=u_table,
         u_bias=u_bias_t,
         block=chunk,
+        timings=timings,
     )
-    return PendingRecommend(pending, user_ids, nums, key_field, items_vocab, f16=serving.readback_precision == "f16")
+    f16 = serving.readback_precision == "f16"
+    return PendingRecommend(pending, user_ids, nums, n, key_field, items_vocab, sw, f16=f16)

@@ -14,11 +14,15 @@ readback is the (N, n) result in :meth:`PendingServe.finalize`.
 
 What the TPU engine does for its remote transport is left out: the pieced
 f16/u16 readback, resident scalars and the per-group scan programs.  Results
-come back as f32 scores and int32 item numbers.
+come back as f32 scores and int32 item numbers.  ``timings`` gets the JAX
+package's keys, told of the copies between host and device: ``enqueue_s``,
+``readback_s``, a ``trace`` of ``(label, seconds, bytes)`` a copy and
+``tunnel_ops``, their count.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -75,17 +79,23 @@ def plan_groups(nums: np.ndarray, lens: np.ndarray, block: int) -> ServePlan:
     return ServePlan(order, nums_padded, groups, block)
 
 
-def _resident_csr(csr, needs_vals: bool, device: torch.device):
+def _resident_csr(csr, needs_vals: bool, device: torch.device, trace: list | None = None):
     """(rowptr int64, colind int32, values f32 or None) on the device, each
-    uploaded once per host array."""
+    uploaded once per host array; an upload made here is one ``trace``
+    entry."""
     from lkpy_tpu_torch.batch.device import _cached_device
 
+    t0 = time.perf_counter()
+    uploads: list = []
     vals = None
     if needs_vals:
         if csr.values is None:
             raise ValueError("serving path needs rating values but the CSR has none")
-        vals = _cached_device(csr.values, device).to(torch.float32)
-    return _cached_device(csr.rowptr, device), _cached_device(csr.colind, device), vals
+        vals = _cached_device(csr.values, device, uploads).to(torch.float32)
+    entry = _cached_device(csr.rowptr, device, uploads), _cached_device(csr.colind, device, uploads), vals
+    if trace is not None and uploads:
+        trace.append(("upload:resident_csr", time.perf_counter() - t0, sum(uploads)))
+    return entry
 
 
 def _history(indptr, cols, vals, users, H: int):
@@ -138,16 +148,31 @@ def _serve_block(users, indptr, cols, vals, i_emb, i_bias, offset, u_table, u_bi
 class PendingServe(NamedTuple):
     """An enqueued serving batch: device work issued, readback pending.
     ``finalize()`` returns ``(vals f32 (N, n), idx int32 (N, n), order)``
-    with rows in sorted order: position ``order[i]`` -> input row."""
+    with rows in sorted order: position ``order[i]`` -> input row, and
+    fills ``timings`` (when given) with ``enqueue_s``, ``readback_s`` (host
+    seconds of the readback, waiting for the device work included),
+    ``trace`` and ``tunnel_ops``."""
 
     v: torch.Tensor  # (N_pad, n) f32 on the device
     ix: torch.Tensor  # (N_pad, n) int32 on the device
     order: np.ndarray
     n_rows: int
+    t_enqueue: float = 0.0
+    trace: list | None = None
+    timings: dict | None = None
 
     def finalize(self):
         N = self.n_rows
-        return self.v[:N].cpu().numpy(), self.ix[:N].cpu().numpy(), self.order
+        tr = time.perf_counter()
+        v, ix = self.v[:N].cpu().numpy(), self.ix[:N].cpu().numpy()
+        t_read = time.perf_counter() - tr
+        if self.timings is not None:
+            self.trace.append(("readback:topn", t_read, v.nbytes + ix.nbytes))
+            self.timings["enqueue_s"] = self.t_enqueue
+            self.timings["readback_s"] = t_read
+            self.timings["tunnel_ops"] = len(self.trace)
+            self.timings["trace"] = self.trace
+        return v, ix, self.order
 
 
 def serve_batch(nums: np.ndarray, csr, **kw):
@@ -172,15 +197,22 @@ def enqueue_serve(
     u_table: torch.Tensor | None = None,
     u_bias: torch.Tensor | None = None,
     block: int = 1024,
+    timings: dict | None = None,
 ) -> PendingServe:
     """Issue all device work for one serving batch of user numbers ``nums``
     (−1 for unknown users) against the training ``csr``.  ``kern`` is a
     fold-in kernel (with ``kern_args``) or None to look users up in
-    ``u_table``."""
+    ``u_table``.  ``timings`` is filled by ``finalize()``."""
+    trace: list | None = [] if timings is not None else None
+    t0 = time.perf_counter()
     n = min(n, n_items)  # catalogs smaller than the requested list length
     plan = plan_groups(np.asarray(nums), csr.row_lengths(), block)
-    indptr, colv, valv = _resident_csr(csr, needs_vals, device)
-    nums_dev = torch.from_numpy(plan.nums_padded.astype(np.int64)).to(device)
+    indptr, colv, valv = _resident_csr(csr, needs_vals, device, trace)
+    tu = time.perf_counter()
+    nums_host = plan.nums_padded.astype(np.int64)
+    nums_dev = torch.from_numpy(nums_host).to(device)
+    if trace is not None:
+        trace.append(("upload:user_nums", time.perf_counter() - tu, nums_host.nbytes))
     n_pad = len(plan.nums_padded)
     v = torch.empty((n_pad, n), dtype=torch.float32, device=device)
     ix = torch.empty((n_pad, n), dtype=torch.int32, device=device)
@@ -194,4 +226,4 @@ def enqueue_serve(
             )
             v[lo : lo + B] = vb
             ix[lo : lo + B] = ib
-    return PendingServe(v, ix, plan.order, len(nums))
+    return PendingServe(v, ix, plan.order, len(nums), time.perf_counter() - t0, trace, timings)

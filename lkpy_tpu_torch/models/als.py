@@ -368,14 +368,7 @@ class BiasedMFScorer(ALSBase):
         scorer.load_parameters(
             {"user_embeddings": params.get("user_embeddings"), "item_embeddings": params["item_embeddings"]}, device=dev
         )
-        scorer.bias = BiasModel(
-            scorer.config.damping,
-            float(params["global_bias"]),
-            items=items,
-            item_biases=np.array(params["item_biases"], dtype=np.float32),
-            users=users,
-            user_biases=np.array(params["user_biases"], dtype=np.float32),
-        )
+        scorer.bias = BiasModel.from_numpy(params, scorer.config.damping, users, items)
         return scorer
 
     def create_trainer(self, data: Dataset, options: TrainingOptions) -> "BiasedMFTrainer":

@@ -226,7 +226,8 @@ class UserTrainingHistoryLookup(Component):
         if "user" not in ints.entities:
             self.interactions = None
             return
-        self.interactions = ints.matrix()
+        # the dataset's cached matrix (the JAX package builds a new one, the same, from the table each time)
+        self.interactions = data.interaction_matrix(self.config.interaction_class)
 
     def __call__(self, query: QueryInput) -> RecQuery:
         query = RecQuery.create(query)

@@ -115,6 +115,21 @@ class BiasModel:
             model.user_biases = u_bias.cpu().numpy()
         return model
 
+    @classmethod
+    def from_numpy(cls, params: dict, damping, users: Vocabulary | None, items: Vocabulary) -> "BiasModel":
+        """A model from ``global_bias``, ``item_biases`` and ``user_biases``
+        (may be absent or None) held as NumPy arrays, as the JAX package's
+        ``BiasModel`` holds them."""
+        user_biases = params.get("user_biases")
+        return cls(
+            damping,
+            float(params["global_bias"]),
+            items=items,
+            item_biases=np.array(params["item_biases"], dtype=np.float32),
+            users=users if user_biases is not None else None,
+            user_biases=None if user_biases is None else np.array(user_biases, dtype=np.float32),
+        )
+
     def transform_matrix(self, csr: CSR) -> CSR:
         """Subtract biases from CSR rating values
         (reference: bias.py ``transform_matrix``): r' = r − b_g − b_i − b_u."""

@@ -242,6 +242,28 @@ with tempfile.TemporaryDirectory() as d:
     assert schemas.load_model_data(d + "/s.toml", type(lkpy_tpu_config())).training_perf.ladder_ratio == 1.35
 assert int(MTArray(np.arange(3)).torch().sum()) == 3
 assert len(StochasticTopNRanker(n=2, rng=1)(ItemList(item_ids=[1, 2, 3], scores=[0.1, 0.2, 0.3]))) == 2
+# the rest of the zoo and the batch runner's rest: FunkSVD, SLIM, BiasedSVD, NMF, association, FA*IR, the bridges,
+# timings
+from lkpy_tpu_torch.models import AssociationScorer, FunkSVDScorer, SLIMScorer
+from lkpy_tpu_torch.models.fair import FAIRReranker
+from lkpy_tpu_torch.models.hpf import HPFScorer
+from lkpy_tpu_torch.models.implicit_bridge import ALS
+from lkpy_tpu_torch.models.nmf import NMFScorer
+from lkpy_tpu_torch.models.svd import BiasedSVDScorer
+for zoo_scorer, data in ((FunkSVDScorer(features=3, epochs=2, batch_size=64), rated), (BiasedSVDScorer(features=3), rated),
+                         (NMFScorer(features=3, max_iter=5), rated), (SLIMScorer(max_iters=5), ds), (AssociationScorer(), ds)):
+    zoo_pipe = lkpy_tpu_torch.topn_pipeline(zoo_scorer, n=5)
+    zoo_pipe.train(data, TrainingOptions(rng=1, device="cpu"))
+    assert recommend(zoo_pipe, data.users.ids[:3], n=5).total_items() > 0
+timings = {}
+device_recommend(trained, ds.users.ids, 5, ds.interaction_matrix(), device="cpu", timings=timings)
+assert timings["tunnel_ops"] == len(timings["trace"])
+for bridge in (HPFScorer(), ALS()):
+    try:
+        bridge.train(ds)
+    except ImportError:
+        pass
+assert FAIRReranker(n=3).config.n == 3
 # every module of the package, and the chip smoke script
 import importlib, pkgutil
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
