@@ -69,6 +69,18 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      float16 scores; 5 epochs, a checkpoint through ``state`` and 5 more in a
      new trainer against 10 straight; host negative sampling checked by
      exact membership;
+   - the command line, the spec files and the tuner (``tooling_phase``):
+     ``pipeline expand -f pipelines/als-implicit.toml`` then ``train -c`` on
+     the saved training split (tables equal to the bit to ``Pipeline.train``
+     in this process, NDCG@10 against the pipeline's), ``recommend`` of 20
+     test users in this process and as ``python -m lkpy_tpu_torch`` in a
+     fresh interpreter that imports no JAX, ``doctor``, ``PipelineTuner``
+     over ``pipelines/als-implicit-search.toml`` (3 of its 30 points on a
+     500-user validation split, then one iterative trial of 3 epochs; the
+     points against a CPU replay of the sampler, every value above the
+     popularity ranking's; B1 and G timed at the largest chunks at every
+     sampled width above 64), and the runner with a profiler over 200 users
+     with ``profile summarize``;
    - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
      on all the interactions, 3 % of the users (split, ``Pipeline.train``,
      the per-query runner, which folds each user in and scores on the card,
@@ -259,11 +271,12 @@ PER_QUERY_USERS = 20
 NDCG_PIPELINE_TOL = 0.005
 
 #: quick_measure_model's user sample in the evaluation phase: the reference's
-#: 0.2 cut to 0.03 (4,140 users; 0.05 until the zoo phase came) for implicit
-#: feedback and 0.02 (2,760) for ratings, since its runner serves one query at
-#: a time on the host
-EVAL_USER_FRAC = 0.03
-EVAL_EXPLICIT_USER_FRAC = 0.02
+#: 0.2 cut to 0.01 (1,380 users; 0.05 until the zoo phase came, 0.03 until the
+#: tooling phase came) for implicit feedback and 0.005 (690; 0.02 before the
+#: tooling phase) for ratings, since its runner serves one query at a time on
+#: the host
+EVAL_USER_FRAC = 0.01
+EVAL_EXPLICIT_USER_FRAC = 0.005
 EVAL_N = 20
 #: users on which the runner's lists must equal the device route's, at least
 EVAL_MIN_COMPARED = 200
@@ -372,6 +385,19 @@ FAIR_SEED = 42
 FAIR_SHARE = 0.2
 FAIR_LISTS = 1_000
 FAIR_LIST_LEN = 200
+
+# the CLI, the spec files and the tuner (tooling_phase)
+TOOL_SEED = 42
+#: the tuner's validation split: this many users of bench.py's training set (the search file's 30 points → TUNE_POINTS)
+TUNE_USERS = 500
+TUNE_POINTS = 3
+TUNE_SEED = 42
+TUNE_ITER_EPOCHS = 3
+#: the iterative trial's seed; its one point samples embedding_size 256, so its epochs run B1's shared-memory route
+TUNE_ITER_SEED = 7
+#: widths above this get B1 and G timed at the epoch's largest chunks
+TUNE_TIMED_ABOVE = 64
+PROFILE_USERS = 200
 
 
 def log(*args):
@@ -3481,13 +3507,24 @@ def check_same_dataset(label: str, got, want) -> None:
                 raise AssertionError(f"{label}: the {name} attribute {attr!r} differs")
 
 
-def solve_case(label: str, B: int, k: int, dev, seed: int) -> dict:
+def spd_inputs_on_card(seed: int, B: int, k: int, dev):
+    """``spd_inputs``'s systems drawn on the card from a torch seed: the
+    host's generator takes tens of seconds at (30024, 256, 256)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((B, k, k), generator=gen, device=dev).double()
+    A = torch.baddbmm(torch.eye(k, dtype=torch.float64, device=dev), X, X.transpose(1, 2), alpha=1.0 / k).float()
+    del X
+    return A.contiguous(), torch.randn((B, k), generator=gen, device=dev)
+
+
+def solve_case(label: str, B: int, k: int, dev, seed: int, reps: int = 20) -> dict:
     """B1 against its plain version and a float64 solve on SPD systems at a
-    training chunk's shape (the kernel phase's inputs and tolerances), timed
-    beside the plain version and ``cholesky`` + ``cholesky_solve``."""
+    training chunk's shape (the kernel phase's distribution, drawn on the
+    card, and tolerances), timed beside the plain version and ``cholesky`` +
+    ``cholesky_solve`` over ``reps`` launches."""
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
 
-    A, y = spd_inputs(np.random.default_rng(seed), B, k, dev)
+    A, y = spd_inputs_on_card(seed, B, k, dev)
     x = spd_solve_chunked(A, y)
     p = spd_solve_chunked_plain(A, y)
     torch.cuda.synchronize()
@@ -3497,8 +3534,8 @@ def solve_case(label: str, B: int, k: int, dev, seed: int) -> dict:
     err64 = float((x.double() - x64).abs().max() / x64.abs().max())
     if not (rel_err <= 1e-5 and err64 <= 1e-4):
         raise AssertionError(f"spd_solve_chunked {label} ({B}, {k}): vs plain {rel_err}, vs float64 {err64}")
-    ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=20)
-    plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=3, warm=1)
+    ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=reps, warm=min(2, reps))
+    plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=min(3, reps), warm=1)
     lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
     bound_ms, bound_by = spd_bound(B, k)
     log(
@@ -3727,6 +3764,383 @@ def data_config_phase(dev, split: dict) -> dict:
     return {"config_training": trained, "config_serving": served, "config_checkpoint": checkpoint}
 
 
+def cli_invoke(args: list) -> str:
+    """Run the port's command line in this process through click's
+    ``CliRunner``; its logging set-up is undone afterwards.  Raises with the
+    output when the command fails."""
+    import logging
+
+    from click.testing import CliRunner
+
+    from lkpy_tpu_torch.cli import cli
+
+    root = logging.getLogger()
+    level, handlers = root.level, list(root.handlers)
+    try:
+        res = CliRunner().invoke(cli, [str(a) for a in args])
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                h.close()
+            root.removeHandler(h)
+        for h in handlers:
+            root.addHandler(h)
+        root.setLevel(level)
+    if res.exit_code != 0:
+        raise AssertionError(f"lkpy-tpu-torch {' '.join(map(str, args))} exited {res.exit_code}:\n{res.output}") from res.exception
+    return res.output
+
+
+#: run ``python -m lkpy_tpu_torch ARGS`` (``runpy`` does what ``-m`` does) and fail at exit if JAX or the JAX package was imported
+_NO_JAX_MAIN = """
+import atexit, os, runpy, sys
+
+def _check():
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "lkpy_tpu"))
+    sys.stdout.flush()
+    if bad:
+        print("imported:", bad, file=sys.stderr, flush=True)
+        os._exit(3)
+    print("at exit: neither jax nor lkpy_tpu imported", file=sys.stderr, flush=True)
+
+atexit.register(_check)
+sys.argv = ["lkpy_tpu_torch", *sys.argv[1:]]
+runpy.run_module("lkpy_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def cli_subprocesses(*commands: list) -> list[tuple[str, str, float]]:
+    """``python -m lkpy_tpu_torch ARGS`` for each ARGS, each in a fresh
+    interpreter from the checkout's root, all started together; their
+    standard output and error and wall seconds."""
+    from pathlib import Path
+
+    def one(args):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _NO_JAX_MAIN, *map(str, args)], cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+            timeout=300,
+        )  # fmt: skip
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m lkpy_tpu_torch {' '.join(map(str, args))} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        if "neither jax nor lkpy_tpu imported" not in proc.stderr:
+            raise AssertionError(f"the subprocess did not run its exit check:\n{proc.stderr}")
+        return proc.stdout, proc.stderr, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(commands)) as pool:
+        return list(pool.map(one, commands))
+
+
+def printed_lists(out: str) -> dict:
+    """``recommend``'s printed lists by user, as (item id, printed score)
+    pairs: ids print through ``DataFrame.iterrows``, integers as ``21.0``.
+    Lines of the command's log are skipped."""
+    import re
+
+    line_re = re.compile(r"^\s+\d+\. (\S+) \((-?[\d.]+)\)$")
+    lists, user = {}, None
+    for line in out.splitlines():
+        if line.startswith("recommendations for user "):
+            user = int(line.removeprefix("recommendations for user ").rstrip(":"))
+            lists[user] = []
+        elif user is not None and (m := line_re.match(line)) is not None:
+            lists[user].append((int(float(m[1])), m[2]))
+    return lists
+
+
+def epoch_events(trainer_cls):
+    """Wrap ``trainer_cls.train_epoch`` to record a CUDA event pair around
+    every epoch, without waiting for the card, with the trainer's chunks an
+    epoch, and keep the last trainer of each width above
+    ``TUNE_TIMED_ABOVE``; returns the list of (chunks, start, end), the
+    trainers by width and the function that puts the method back."""
+    pairs: list = []
+    kept: dict = {}
+    orig = trainer_cls.train_epoch
+
+    def timed(self):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(self)
+        e.record()
+        pairs.append((sum(c.rows.shape[0] for c in self.u_buckets + self.i_buckets), s, e))
+        if self.config.embedding_size > TUNE_TIMED_ABOVE:
+            kept[self.config.embedding_size] = self
+        return out
+
+    trainer_cls.train_epoch = timed
+    return pairs, kept, lambda: setattr(trainer_cls, "train_epoch", orig)
+
+
+def tooling_phase(dev, split: dict) -> dict:
+    """The command line, the spec files and the tuner on the card, on
+    bench.py's split:
+
+    - ``cli_training``: the training split saved natively, then
+      ``pipeline expand -f pipelines/als-implicit.toml`` and ``train -c`` (B1
+      and G once a chunk, no B2 or P); the pickled tables equal to the bit
+      to ``load_pipeline_file(...).build()`` → ``Pipeline.train`` in this
+      process, and NDCG@10 of the 10,000 test users (``cli_serving``: B2 and
+      G once a block) against the pipeline phase's;
+    - ``cli_recommend``: ``recommend -m model.pkl.gz`` for 20 test users in
+      this process (B2 and G once a block), and as ``python -m
+      lkpy_tpu_torch recommend`` in a fresh interpreter that imports no JAX;
+      ``doctor`` there names the card;
+    - ``tuning``: ``PipelineTuner`` over ``pipelines/als-implicit-search.toml``
+      on a validation split of ``TUNE_USERS`` users (B1 and G once a chunk on
+      every epoch, G, B2 and P once a measured query), its points against a
+      CPU replay of the sampler and every value against the popularity
+      ranking's; ``tuning_iterative``: one iterative trial of
+      ``TUNE_ITER_EPOCHS`` epochs; B1 and G timed at the largest chunks at
+      each sampled width above ``TUNE_TIMED_ABOVE``;
+    - ``profile``: ``BatchPipelineRunner.run(..., profile=)`` over 200 users
+      of the CLI-trained pipeline (G, B2 and P once a query), then
+      ``profile summarize`` of its CSV.
+
+    Returns the launches of each path."""
+    import gzip
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import pandas as pd
+
+    from lkpy_tpu_torch.batch import BatchPipelineRunner, recommend
+    from lkpy_tpu_torch.batch import device as batch_device
+    from lkpy_tpu_torch.config import lkpy_tpu_config
+    from lkpy_tpu_torch.data import ItemList
+    from lkpy_tpu_torch.models.als import ImplicitMFTrainer
+    from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route
+    from lkpy_tpu_torch.pipeline import PipelineProfiler
+    from lkpy_tpu_torch.pipeline.specfile import load_pipeline_file, load_search_file
+    from lkpy_tpu_torch.random import random_generator
+    from lkpy_tpu_torch.splitting import SampleFrac, sample_users
+    from lkpy_tpu_torch.training import TrainingOptions
+    from lkpy_tpu_torch.tuning import PipelineTuner, TPESampler, TuningSpec
+
+    here = Path(__file__).resolve().parent
+    pipelines = here / "pipelines"
+    ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
+    per_epoch = split["chunks_per_epoch"]
+    if lkpy_tpu_config().training_perf.ladder_ratio != 1.35:
+        raise AssertionError("the ladder an earlier phase configured was not restored")
+    users = np.unique(test_u)
+    paths: dict[str, dict] = {}
+    tmp = Path(tempfile.mkdtemp(prefix="lkpy-tpu-torch-tooling-"))
+    try:
+        # ---- cli_training: spec file → config → train → pickle
+        t = time.perf_counter()
+        ds.save(tmp / "split")
+        save_s = time.perf_counter() - t
+        cli_invoke(["pipeline", "expand", "-f", pipelines / "als-implicit.toml", "-o", tmp / "cfg.json"])
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cli_invoke(["train", "-c", tmp / "cfg.json", "--rng-seed", TOOL_SEED, "-o", tmp / "model.pkl.gz", tmp / "split"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        paths["cli_training"] = trained = read_counts()
+        size = (tmp / "model.pkl.gz").stat().st_size
+        log(
+            f"cli train -c (pipeline expand -f pipelines/als-implicit.toml): {train_s:.2f}s with the load, Pipeline.train and the "
+            f"gzip pickle ({size / 2**20:.1f} MiB); the split saved in {save_s:.2f}s; launches {trained}; {out.strip().splitlines()[-1]!r}"
+        )
+        want = per_epoch * EPOCHS
+        if trained["spd_solve_chunked"] != want or trained["gather_gram"] != want or trained["spd_solve"] or trained["gather_rows"]:
+            raise AssertionError(f"cli train must launch B1 and G once a chunk ({want}), no B2 or P: {trained}")
+        with gzip.open(tmp / "model.pkl.gz", "rb") as f:
+            cli_pipe = pickle.load(f)
+        cli_scorer = cli_pipe.node("scorer").component
+        ref_pipe = load_pipeline_file(pipelines / "als-implicit.toml").build()
+        ref_pipe.train(ds, TrainingOptions(rng=TOOL_SEED))
+        ref_scorer = ref_pipe.node("scorer").component
+        same = {
+            name: torch.equal(getattr(cli_scorer, name), getattr(ref_scorer, name))
+            for name in ("user_embeddings", "item_embeddings", "_OtOr")
+        }
+        log(
+            f"cli-trained tables against load_pipeline_file(...).build() → Pipeline.train(TrainingOptions(rng={TOOL_SEED})) in this "
+            f"process: equal to the bit {same}; on {cli_scorer.item_embeddings.device}"
+        )
+        if not all(same.values()) or cli_scorer.item_embeddings.device.type != dev.type:
+            raise AssertionError(f"the CLI-trained tables must equal the in-process ones to the bit, on the card: {same}")
+        del ref_pipe, ref_scorer
+        block = inspect.signature(batch_device.device_recommend_async).parameters["chunk"].default
+        zero_counts()
+        recs = recommend(cli_pipe, users, n=10)
+        paths["cli_serving"] = served = read_counts()
+        blocks = -(-len(users) // block)
+        if served["spd_solve"] != blocks or served["gather_gram"] != blocks or served["spd_solve_chunked"] or served["gather_rows"]:
+            raise AssertionError(f"serving the CLI-trained pipeline must launch B2 and G once a block ({blocks}): {served}")
+        rec_users = [k[0] for k in recs.keys()]
+        nd = ndcg10(rec_users, [list(il.ids()) for il in recs.lists()], test_u, test_i)
+        log(f"cli-trained pipeline: NDCG@10 {nd:.4f} over {len(rec_users)} test users (pipeline phase {split['pipeline_ndcg']:.4f}); launches {served}")
+        if not (nd >= NDCG_MIN and abs(nd - split["pipeline_ndcg"]) <= NDCG_PIPELINE_TOL):
+            raise AssertionError(f"the CLI-trained NDCG@10 {nd} must be >= {NDCG_MIN} and within {NDCG_PIPELINE_TOL} of {split['pipeline_ndcg']}")
+
+        # ---- cli_recommend: in this process and in a fresh interpreter
+        few = [int(u) for u in users[:PER_QUERY_USERS]]
+        args = ["recommend", "-m", tmp / "model.pkl.gz", "-n", 10, *few]
+        zero_counts()
+        t = time.perf_counter()
+        here_out = cli_invoke(args)
+        here_s = time.perf_counter() - t
+        paths["cli_recommend"] = rec_counts = read_counts()
+        if rec_counts["spd_solve"] != 1 or rec_counts["gather_gram"] != 1 or rec_counts["spd_solve_chunked"] or rec_counts["gather_rows"]:
+            raise AssertionError(f"cli recommend of {len(few)} users must launch B2 and G once (one block), no B1 or P: {rec_counts}")
+        (sub_out, sub_err, sub_s), (doc_out, _, doc_s) = cli_subprocesses(args, ["doctor"])
+        here_lists, sub_lists = printed_lists(here_out), printed_lists(sub_out)
+        if sorted(here_lists) != sorted(few) or sorted(sub_lists) != sorted(few):
+            raise AssertionError(f"cli recommend printed lists for {sorted(here_lists)} here and {sorted(sub_lists)} in the subprocess, not {few}")
+        for u in few:
+            want_il = recs.lookup(u)
+            for label, got in (("in-process", here_lists[u]), ("subprocess", sub_lists[u])):
+                if not same_ids_at_clear_gaps(ItemList(item_ids=[i for i, _ in got]), want_il):
+                    raise AssertionError(f"user {u}: {label} cli recommend {got} differs from {list(want_il.ids())} at clear gaps")
+        log(
+            f"cli recommend of {len(few)} users: in-process {here_s:.2f}s (launches {rec_counts}), python -m lkpy_tpu_torch recommend "
+            f"{sub_s:.2f}s in a fresh interpreter beside doctor's ({sub_err.strip().splitlines()[-1]}); both equal the batch lists at clear gaps; "
+            f"the printed lists and scores identical {here_lists == sub_lists}"
+        )
+        name = torch.cuda.get_device_name(0)
+        log(f"python -m lkpy_tpu_torch doctor ({doc_s:.2f}s): " + " | ".join(doc_out.strip().splitlines()))
+        if name not in doc_out:
+            raise AssertionError(f"doctor must name the card {name!r}:\n{doc_out}")
+
+        # ---- profile: the runner over PROFILE_USERS users with a profiler, then profile summarize
+        runner = BatchPipelineRunner(progress=False)
+        runner.recommend(n=10)
+        stages = [n.name for n in cli_pipe.component_nodes()]
+        zero_counts()
+        t = time.perf_counter()
+        with PipelineProfiler(cli_pipe, tmp / "profile.csv") as prof:
+            prof_recs = runner.run(cli_pipe, users[:PROFILE_USERS], profile=prof).output("recommendations")
+        prof_s = time.perf_counter() - t
+        paths["profile"] = prof_counts = read_counts()
+        frame = pd.read_csv(tmp / "profile.csv")
+        summary = cli_invoke(["profile", "summarize", tmp / "profile.csv"])
+        log(f"profiled runner: {PROFILE_USERS} users in {prof_s:.2f}s, launches {prof_counts}; profile summarize:\n{summary.rstrip()}")
+        if list(frame.columns) != stages or len(frame) != PROFILE_USERS or len(prof_recs) != PROFILE_USERS:
+            raise AssertionError(f"the profile must have one row a query and the columns {stages}: {list(frame.columns)}, {len(frame)} rows")
+        if not all(s in summary for s in stages if frame[s].notna().any()):
+            raise AssertionError("profile summarize must list every stage that ran")
+        if any(prof_counts[k] != PROFILE_USERS for k in ("gather_gram", "spd_solve", "gather_rows")) or prof_counts["spd_solve_chunked"]:
+            raise AssertionError(f"the profiled runner must launch G, B2 and P once a query ({PROFILE_USERS}): {prof_counts}")
+        del cli_pipe, cli_scorer, recs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- tuning: the shipped search file on a validation split of bench.py's training set
+    spec = load_search_file(pipelines / "als-implicit-search.toml")
+    shipped = spec.max_points
+    spec = spec.model_copy(update={"max_points": TUNE_POINTS})
+    t = time.perf_counter()
+    vsplit = sample_users(ds, TUNE_USERS, SampleFrac(0.2, rng=TUNE_SEED), rng=TUNE_SEED)
+    queries = len(vsplit.test)
+    log(
+        f"tuning: {spec.model}, metric {spec.metric}, {spec.max_points} of the file's {shipped} points, space {sorted(spec.space)}, "
+        f"fixed {spec.fixed}; validation split of {queries} users in {time.perf_counter() - t:.1f}s"
+    )
+    pop = PipelineTuner(
+        TuningSpec(model="pop", metric=spec.metric, n_recs=spec.n_recs, max_points=1, sampler="random"), vsplit, rng=TUNE_SEED
+    ).run().best_value
+
+    def run_tuner(tuner, label: str):
+        per_point, measured = [], []
+        orig_trial, orig_measure = tuner._run_trial, tuner._measure
+
+        def trial(params):
+            before = read_counts()
+            pairs_from = len(pairs)
+            point = orig_trial(params)
+            torch.cuda.synchronize()
+            after = read_counts()
+            ms = [s.elapsed_time(e) for _, s, e in pairs[pairs_from:]]
+            plans = {n for n, _, _ in pairs[pairs_from:]}
+            per_point.append((point, {k: after[k] - before[k] for k in after}, ms, list(measured), plans))
+            measured.clear()
+            return point
+
+        def measure(pipe):
+            out = orig_measure(pipe)
+            measured.append(out[spec.metric])
+            return out
+
+        tuner._run_trial, tuner._measure = trial, measure
+        pairs, kept, restore = epoch_events(ImplicitMFTrainer)
+        try:
+            zero_counts()
+            t = time.perf_counter()
+            res = tuner.run()
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t
+            counts = read_counts()
+        finally:
+            restore()
+        for point, launches, ms, values, plans in per_point:
+            if len(plans) != 1:
+                raise AssertionError(f"{label}: one trial's epochs ran {plans} chunks")
+            v_plan = plans.pop()
+            epochs = point.epochs or tuner._make_scorer(point.params).config.epochs
+            log(
+                f"{label} point embedding_size={point.params['embedding_size']}, params {point.params}: {spec.metric} {point.value:.5f} "
+                f"(per measured epoch {values}), {point.time:.2f}s, {epochs} epochs of {v_plan} chunks, epoch ms {[round(m, 3) for m in ms]}, "
+                f"launches {launches}"
+            )
+            n_measures = len(values)
+            want = {
+                "spd_solve_chunked": v_plan * epochs, "gather_gram": v_plan * epochs + queries * n_measures,
+                "spd_solve": queries * n_measures, "gather_rows": queries * n_measures, "mips_topk": 0,
+            }  # fmt: skip
+            if launches != want or len(ms) != epochs:
+                raise AssertionError(f"{label}: a point must launch B1 and G once a chunk and G, B2 and P once a measured query: {launches} != {want}")
+            if not (np.isfinite(point.value) and point.value > pop):
+                raise AssertionError(f"{label}: {spec.metric} {point.value} must be finite and above the popularity ranking's {pop}")
+        log(f"{label}: {len(res.points)} points in {took:.1f}s, best {res.best_params} ({res.best_value:.5f}); popularity {pop:.5f}; launches {counts}")
+        best = max(res.points, key=lambda p: p.value)
+        if res.best_params != best.params or res.best_value != best.value:
+            raise AssertionError(f"{label}: best_params must be the point with the best value")
+        # the points again from the sampler alone, on the CPU, with the same seed and values
+        rng = random_generator(tuner_seed[label])
+        sampler = TPESampler(tuner.spec.space, rng, n_startup=tuner.spec.n_startup, maximize=True)
+        observed = []
+        for point in res.points:
+            again = sampler.suggest(observed, [])
+            rng.integers(2**31)  # the trial's training seed
+            if again != point.params:
+                raise AssertionError(f"{label}: proposed {point.params}, the sampler's replay {again}")
+            observed.append((again, point.value))
+        trainers.update(kept)
+        return res, counts
+
+    trainers: dict = {}
+    tuner_seed = {"tuning": TUNE_SEED, "tuning iterative": TUNE_ITER_SEED}
+    res, paths["tuning"] = run_tuner(PipelineTuner(spec, vsplit, rng=TUNE_SEED), "tuning")
+    iter_spec = spec.model_copy(update={"method": "iterative", "max_epochs": TUNE_ITER_EPOCHS, "max_points": 1})
+    ires, paths["tuning_iterative"] = run_tuner(PipelineTuner(iter_spec, vsplit, rng=TUNE_ITER_SEED), "tuning iterative")
+    if ires.points[0].epochs != TUNE_ITER_EPOCHS:
+        raise AssertionError(f"the iterative trial must run {TUNE_ITER_EPOCHS} epochs: {ires.points[0].epochs}")
+
+    # B1 and G at each sampled width above TUNE_TIMED_ABOVE, at the largest chunks of the last trial's trainer of that
+    # width, its trained tables as G's right-hand tables; B1 on SPD systems of the chunk's shape drawn on the card
+    widths = sorted(trainers)
+    if widths != sorted({p.params["embedding_size"] for p in res.points + ires.points if p.params["embedding_size"] > TUNE_TIMED_ABOVE}):
+        raise AssertionError(f"a trainer of every sampled width above {TUNE_TIMED_ABOVE} must have run: {widths}")
+    solves, grams = [], []
+    for k in widths:
+        trainer = trainers.pop(k)
+        u_chunk = max(trainer.u_buckets, key=lambda c: c.cols.shape[1] * c.cols.shape[2])
+        label = f"tuner k={k} ({solve_route(k)} route) user chunk {tuple(u_chunk.cols.shape[1:])}"
+        solves.append(solve_case(label, u_chunk.cols.shape[1], k, dev, 30 + k, reps=1))
+        grams += gram_chunk_cases(trainer, k, implicit=True)
+        del trainer
+    log(f"tuning: widths timed {widths}")
+    split["tooling"] = dict(solves=solves, grams=grams, widths=widths)
+    return paths
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3822,6 +4236,7 @@ def main() -> int:
     explicit_training, explicit_serving = phase("explicit", explicit_phase, dev, split, split["rng"])
     pipeline_training, pipeline_serving, pipeline_per_query = phase("pipeline", pipeline_phase, dev, split)
     data_config = phase("data_config", data_config_phase, dev, split)
+    tooling = phase("tooling", tooling_phase, dev, split)
     evaluation_training, evaluation_serving, explicit_evaluation = phase("evaluation", evaluation_phase, dev, full, split["rng"])
     knn_builds = phase("knn_build", knn_build_phase, dev, split)
     item_item = phase("item_item", item_item_phase, dev, split)
@@ -3842,6 +4257,7 @@ def main() -> int:
         "evaluation_serving": evaluation_serving,
         "explicit_evaluation": explicit_evaluation,
         **data_config,
+        **tooling,
         **knn_builds,
         **item_item,
         **gradient,
@@ -3861,6 +4277,11 @@ def main() -> int:
         ("zoo_funksvd_per_query", "gather_rows"), ("zoo_svd_per_query", "gather_rows"), ("zoo_nmf_per_query", "gather_rows"),
         ("zoo_slim_per_query", "gather_rows"), ("zoo_association_probability_per_query", "gather_rows"),
         ("zoo_association_lift_per_query", "gather_rows"),
+        ("cli_training", "spd_solve_chunked"), ("cli_training", "gather_gram"), ("cli_serving", "spd_solve"),
+        ("cli_serving", "gather_gram"), ("cli_recommend", "spd_solve"), ("cli_recommend", "gather_gram"),
+        ("tuning", "spd_solve_chunked"), ("tuning", "gather_gram"), ("tuning", "spd_solve"), ("tuning", "gather_rows"),
+        ("tuning_iterative", "spd_solve_chunked"), ("tuning_iterative", "gather_gram"), ("tuning_iterative", "spd_solve"),
+        ("tuning_iterative", "gather_rows"), ("profile", "gather_gram"), ("profile", "spd_solve"), ("profile", "gather_rows"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
@@ -3883,6 +4304,7 @@ def main() -> int:
             launches_by_path={p: c["spd_solve_chunked"] for p, c in paths.items()},
             **chunked,
             ladder_shapes=split["data_config"]["solves"],
+            tuner_shapes=split["tooling"]["solves"],
         ),
         dict(
             name="mips_topk",
@@ -3923,6 +4345,7 @@ def main() -> int:
             shape=split["gram"][0]["label"],
             shapes=split["gram"],
             ladder_shapes=split["data_config"]["grams"],
+            tuner_shapes=split["tooling"]["grams"],
         ),
     ]
     phase_s["total"] = time.perf_counter() - t_start

@@ -18,8 +18,11 @@ on the CPU) and the per-query :func:`recommend`, :func:`score` and
 :func:`predict` here.  Ported beside it: batch serving
 (:func:`lkpy_tpu_torch.batch.device.device_recommend`), large-catalog
 retrieval (:func:`lkpy_tpu_torch.ops.topk.retrieval_topk`), the explicit
-family and the bias model.
+family and the bias model.  ``python -m lkpy_tpu_torch`` (or
+``lkpy-tpu-torch``) is the command line (:mod:`lkpy_tpu_torch.cli`).
 """
+
+__version__ = "0.1.0"
 
 from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.data import Dataset, DatasetBuilder, ItemList, ItemListCollection, RecQuery, Vocabulary
@@ -34,6 +37,7 @@ from lkpy_tpu_torch.pipeline import (
 )
 
 __all__ = [
+    "__version__",
     "Component",
     "Dataset",
     "DatasetBuilder",

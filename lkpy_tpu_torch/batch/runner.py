@@ -98,7 +98,10 @@ class BatchPipelineRunner:
         return out
 
     # ---- running ----------------------------------------------------------
-    def run(self, pipeline: Pipeline, queries) -> "BatchResults":
+    def run(self, pipeline: Pipeline, queries, *, profile=None) -> "BatchResults":
+        """Run the invocations over ``queries``; ``profile``, a
+        :class:`~lkpy_tpu_torch.pipeline.PipelineProfiler`, records one row
+        of component wall times a pipeline run."""
         from lkpy_tpu_torch.batch.results import BatchResults
 
         norm = self._normalize_queries(queries)
@@ -111,7 +114,7 @@ class BatchPipelineRunner:
 
         def work(entry):
             key, query, items, role = entry
-            return key, self._run_query(pipeline, query, items, role)
+            return key, self._run_query(pipeline, query, items, role, profile)
 
         pb = item_progress("batch run", n) if self.progress else None
         try:
@@ -141,7 +144,7 @@ class BatchPipelineRunner:
         return results
 
     def _run_query(
-        self, pipeline: Pipeline, query: RecQuery, items: ItemList | None, role: str = "test"
+        self, pipeline: Pipeline, query: RecQuery, items: ItemList | None, role: str = "test", profile=None
     ) -> dict[str, Any]:
         outs: dict[str, Any] = {}
         for inv in self.invocations:
@@ -153,7 +156,7 @@ class BatchPipelineRunner:
                 # gate recommend via use_first_of(items, selector)
                 kwargs["items"] = items
             nodes = list(inv.components.values())
-            state = pipeline.run_all(*nodes, **kwargs)
+            state = pipeline.run_all(*nodes, _profile=profile, **kwargs)
             for oname, node in inv.components.items():
                 outs[oname] = state[pipeline.node(node).name]
         return outs

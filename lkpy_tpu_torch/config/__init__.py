@@ -64,8 +64,8 @@ class MachineSettings(BaseModel):
 
 
 class PrometheusSettings(BaseModel):
-    """Prometheus power scrape (reference: schemas/settings.py:68); no
-    reader in the port yet."""
+    """Prometheus power scrape (reference: schemas/settings.py:68), read by
+    :mod:`lkpy_tpu_torch.logging.power` when ``url`` is set."""
 
     url: str | None = None
     power_queries: dict[str, str] = Field(default_factory=dict)

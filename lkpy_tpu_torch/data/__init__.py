@@ -1,7 +1,8 @@
 """
 The port's data layer: vocabularies, item lists and collections, CSR
 matrices, datasets with entity attributes, their builder and their Parquet
-storage (port of ``lkpy_tpu.data``).
+storage, the MovieLens loaders and the dict flattening helpers (port of
+``lkpy_tpu.data``).
 """
 
 from lkpy_tpu_torch.data.adapt import from_interactions_df, normalize_interactions_df
@@ -21,9 +22,11 @@ from lkpy_tpu_torch.data.dataset import (
     MatrixRelationshipSet,
     RelationshipSet,
 )
+from lkpy_tpu_torch.data.flatten import flatten_dict, unflatten_dict
 from lkpy_tpu_torch.data.items import ItemList
 from lkpy_tpu_torch.data.keys import GenericKey, QueryIDKey, UserIDKey, create_key_type, key_dict, project_key
 from lkpy_tpu_torch.data.matrix import COO, CSR
+from lkpy_tpu_torch.data.movielens import load_movielens, load_movielens_df
 from lkpy_tpu_torch.data.query import QueryInput, QueryItemSource, RecQuery
 from lkpy_tpu_torch.data.schema import AttrLayout, ColumnSpec, DataSchema, EntitySchema, RelationshipSchema
 from lkpy_tpu_torch.data.types import ID, NPID, FeedbackType
@@ -63,8 +66,12 @@ __all__ = [
     "UserIDKey",
     "Vocabulary",
     "create_key_type",
+    "flatten_dict",
     "from_interactions_df",
     "key_dict",
+    "load_movielens",
+    "load_movielens_df",
     "normalize_interactions_df",
     "project_key",
+    "unflatten_dict",
 ]

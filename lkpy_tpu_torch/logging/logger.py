@@ -1,15 +1,20 @@
 """
 Key-value structured loggers over stdlib logging (port of
 ``lkpy_tpu/logging/logger.py``; reference: src/lenskit/logging/_proxy.py
-``get_logger``): loggers take keyword arguments, rendered as ``key=value``
-pairs (logfmt), and support ``.bind()``.
+``get_logger`` and logging/_config.py ``LoggingConfig``): loggers take
+keyword arguments, rendered as ``key=value`` pairs (logfmt), and support
+``.bind()``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import sys
+from dataclasses import dataclass
+from pathlib import Path
 
-__all__ = ["LKLogger", "TRACE_LEVEL", "get_logger"]
+__all__ = ["LKLogger", "LoggingConfig", "TRACE_LEVEL", "basic_logging", "get_logger", "notebook_logging"]
 
 TRACE_LEVEL = 5
 logging.addLevelName(TRACE_LEVEL, "TRACE")
@@ -85,3 +90,83 @@ class LKLogger:
 def get_logger(name: str, **initial: object) -> LKLogger:
     """Get a bound key-value logger (reference: logging/_proxy.py)."""
     return LKLogger(logging.getLogger(name), dict(initial))
+
+
+@dataclass
+class LoggingConfig:
+    """
+    Logging setup (reference: src/lenskit/logging/_config.py ``LoggingConfig``).
+
+    Supports console level, optional logfmt/JSON log files, and TRACE
+    activation.
+    """
+
+    level: int = logging.INFO
+    file: Path | None = None
+    file_level: int | None = None
+    json: bool = False
+
+    def set_verbose(self, verbose: bool | int = True):
+        if verbose:
+            n = int(verbose)
+            self.level = logging.DEBUG if n == 1 else TRACE_LEVEL
+
+    def log_file(self, path: os.PathLike, level: int | None = None, json: bool = False):
+        self.file = Path(path)
+        self.file_level = level
+        self.json = json
+
+    def apply(self):
+        root = logging.getLogger()
+        root.setLevel(min(self.level, self.file_level or self.level))
+        for h in list(root.handlers):
+            root.removeHandler(h)
+        try:
+            from rich.logging import RichHandler
+
+            console = RichHandler(show_path=False, log_time_format="[%X]")
+        except ImportError:  # pragma: no cover
+            console = logging.StreamHandler(sys.stderr)
+            console.setFormatter(logging.Formatter("%(asctime)s %(levelname)-7s %(name)s %(message)s"))
+        console.setLevel(self.level)
+        root.addHandler(console)
+        if self.file:
+            fh = logging.FileHandler(self.file)
+            if self.json:
+                import json as _json
+
+                class _JsonFmt(logging.Formatter):
+                    def format(self, record):
+                        return _json.dumps(
+                            {
+                                "ts": record.created,
+                                "level": record.levelname,
+                                "name": record.name,
+                                "event": record.getMessage(),
+                            }
+                        )
+
+                fh.setFormatter(_JsonFmt())
+            else:
+                fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)-7s %(name)s %(message)s"))
+            fh.setLevel(self.file_level or self.level)
+            root.addHandler(fh)
+
+
+def basic_logging(level: int = logging.INFO):
+    cfg = LoggingConfig(level=level)
+    cfg.apply()
+
+
+def notebook_logging(level: int = logging.INFO) -> None:
+    """One-call logging + progress setup for notebooks
+    (reference: logging/_config.py:66 ``notebook_logging``): applies a
+    console logging config at ``level`` and selects the Jupyter progress
+    backend, which the port does not have yet: until it does, progress
+    under ``"notebook"`` reports nothing."""
+    from lkpy_tpu_torch.logging.progress import set_progress_impl
+
+    cfg = LoggingConfig()
+    cfg.level = level
+    cfg.apply()
+    set_progress_impl("notebook")

@@ -18,7 +18,8 @@ _impl = "auto"
 
 def set_progress_impl(name: str | None):
     """Select the progress backend: ``"rich"``, ``"none"`` or ``"auto"``
-    (reference: progress/_dispatch.py:37)."""
+    (reference: progress/_dispatch.py:37); ``"notebook"``, the JAX
+    package's Jupyter backend, reports nothing until it is ported."""
     global _impl
     _impl = name or "auto"
 

@@ -12,7 +12,7 @@ import logging
 
 from lkpy_tpu_torch.logging.logger import TRACE_LEVEL, LKLogger
 
-__all__ = ["trace", "activate_tracing", "tracing_active"]
+__all__ = ["trace", "activate_tracing", "tracing_active", "Tracer"]
 
 _active = False
 
@@ -33,3 +33,15 @@ def trace(log: LKLogger, msg: str, *args, **kwargs):
     if _active:
         log.trace(msg, *args, **kwargs)
 
+
+class Tracer:
+    """Bound tracer for a logger (reference: _tracing.py ``get_tracer``)."""
+
+    def __init__(self, log: LKLogger):
+        self._log = log
+
+    def trace(self, msg: str, *args, **kwargs):
+        trace(self._log, msg, *args, **kwargs)
+
+    def add_bindings(self, **kwargs):
+        self._log = self._log.bind(**kwargs)

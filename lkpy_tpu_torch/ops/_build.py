@@ -8,6 +8,9 @@ hash of the source, of every header under ``csrc/`` that it includes (by
 ``#include "..."``, directly or through another such header) and of the
 flags, so an edited source or header builds anew and an unchanged one is
 reused.  Nothing but the repository's own sources goes into a build.
+Threads of one process that ask for the same kernel build it once: the
+check and the build run under that kernel's lock, so different kernels
+still build side by side.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "library_path", "load", "source_files", "sources"]
@@ -29,6 +33,8 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "lkpy_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -97,7 +103,10 @@ def _compile(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        lib = _libs[name] = ctypes.CDLL(str(_compile(name)))
-    return lib
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(_compile(name)))
+        return lib

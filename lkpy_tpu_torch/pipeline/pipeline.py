@@ -9,6 +9,7 @@ Port of ``lkpy_tpu/pipeline/pipeline.py``; capability parity with the reference 
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 from lkpy_tpu_torch.diagnostics import PipelineError
@@ -237,9 +238,12 @@ class Pipeline:
             raise PipelineError("no node specified and pipeline has no default")
         return state[dflt]
 
-    def run_all(self, *nodes: str | Node, **kwargs) -> PipelineState:
-        """Run and return state for all executed nodes (reference: _impl.py:453)."""
-        runner = _Runner(self, kwargs)
+    def run_all(self, *nodes: str | Node, _profile=None, **kwargs) -> PipelineState:
+        """Run and return state for all executed nodes (reference: _impl.py:453).
+
+        ``_profile``: a :class:`~lkpy_tpu_torch.pipeline.profiling.PipelineProfiler`
+        to record per-component wall times (the host's clock) for this run."""
+        runner = _Runner(self, kwargs, profiler=_profile)
         targets = list(nodes)
         if not targets:
             dflt = self.default_node_name
@@ -250,17 +254,21 @@ class Pipeline:
         for t in targets:
             node = self.node(t)
             runner.run(node)
+        if _profile is not None and runner.timings:
+            _profile.record(runner.timings)
         return PipelineState(runner.state)
 
 
 class _Runner:
     """Recursive DFS executor (reference: pipeline/_runner.py:36,64)."""
 
-    def __init__(self, pipe: Pipeline, inputs: dict[str, Any]):
+    def __init__(self, pipe: Pipeline, inputs: dict[str, Any], *, profiler=None):
         self.pipe = pipe
         self.inputs = inputs
         self.state: dict[str, Any] = {}
         self.in_progress: set[str] = set()
+        self.profiler = profiler
+        self.timings: dict[str, float] = {}
 
     def run(self, node: Node, *, required: bool = True) -> Any:
         if node.name in self.state:
@@ -317,7 +325,9 @@ class _Runner:
                 # a Lazy[T]-annotated input defers its upstream node until
                 # .get() is called (reference: lazy.py Lazy + pipeline
                 # runner) — e.g. FallbackScorer's backup scorer only runs
-                # when scores are actually missing.
+                # when scores are actually missing.  Profiling caveat: a
+                # deferred node that does run executes inside the consumer's
+                # timed call, so its duration appears under both nodes.
                 src_node = self.pipe._nodes[src]
 
                 def _thunk(n=src_node, nm=node.name, inm=iname):
@@ -336,4 +346,9 @@ class _Runner:
                 if res is not None:
                     value = res
             kwargs[iname] = value
+        if self.profiler is not None:
+            t0 = time.perf_counter()
+            result = comp(**kwargs)
+            self.timings[node.name] = time.perf_counter() - t0
+            return result
         return comp(**kwargs)

@@ -1101,3 +1101,61 @@ def test_device_recommend_timings_on_card(cuda):
     assert timings["enqueue_s"] + timings["readback_s"] <= wall
     assert timings["tunnel_ops"] == len(timings["trace"]) >= 2 and timings["trace"][-1][0] == "readback:topn"
     assert len(recs) == ds.user_count
+
+
+def _planted_interactions(seed=256, n_users=400, n_items=300, groups=8, own=25, noise=5):
+    """Each user takes ``own`` of its group's 40 items and ``noise`` others:
+    a structure ALS recovers, so the top of a list is not decided by scores
+    within float32 rounding of one another."""
+    rng = np.random.default_rng(seed)
+    g_items = [rng.choice(n_items, size=40, replace=False) for _ in range(groups)]
+    rows = []
+    for u in range(n_users):
+        its = set(rng.choice(g_items[u % groups], size=own, replace=False)) | set(rng.choice(n_items, size=noise, replace=False))
+        rows += [(u, i) for i in sorted(its)]
+    return pd.DataFrame(rows, columns=["user_id", "item_id"])
+
+
+@pytest.mark.parametrize("method", ["random", "iterative"])
+def test_tuner_trial_at_256_on_card_matches_cpu(cuda, method):
+    """A tuner trial at ``embedding_size`` 256 (B1's shared-memory route and
+    G at k = 256 inside the tuner) on the card against the same trial on the
+    CPU: each measured epoch's item table within 1e-4 relative Frobenius,
+    the metrics within 1e-4 relative."""
+    from lkpy_tpu_torch.ops.gather_gram import gather_gram
+    from lkpy_tpu_torch.splitting import SampleFrac, sample_users
+    from lkpy_tpu_torch.tuning import PipelineTuner, TuningSpec
+
+    class Recording(PipelineTuner):
+        def _measure(self, pipe):
+            self.tables.append(pipe.node("scorer").component.item_embeddings.detach().cpu().clone())
+            return super()._measure(pipe)
+
+    ds = from_interactions_df(_planted_interactions())
+    split = sample_users(ds, 80, SampleFrac(0.2, rng=3), rng=3)
+    spec = TuningSpec(
+        model="als-implicit",
+        space={"embedding_size": {"type": "int", "min": 256, "max": 256, "scale": "pow2"}},
+        metric="NDCG@20",
+        max_points=1,
+        method=method,
+        max_epochs=2,
+        fixed={"epochs": 2, "user_embeddings": True, "regularization": 10.0},
+    )
+    assert solve_route(256) == "shared"
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = (spd_solve_chunked.launches, gather_gram.launches)
+        tuner = Recording(spec, split, rng=5, device=None if device == "cuda" else "cpu")
+        tuner.tables = []
+        runs[device] = (tuner.run().points[0], tuner.tables)
+        launched = spd_solve_chunked.launches > before[0] and gather_gram.launches > before[1]
+        assert launched == (device == "cuda")
+    (got, got_tables), (want, want_tables) = runs["cuda"], runs["cpu"]
+    assert got.params == want.params == {"embedding_size": 256} and got.epochs == want.epochs
+    assert len(got_tables) == len(want_tables) == (2 if method == "iterative" else 1)
+    for a, b in zip(got_tables, want_tables):
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 1e-4
+    assert want.value > 0.3
+    for k, v in want.metrics.items():
+        assert abs(got.metrics[k] - v) <= 1e-4 * max(abs(v), 1e-12), k
