@@ -8,13 +8,16 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and a library
    yardstick: the fold-in solve (``spd_solve``: the route its shape takes
-   beside the kernel's first form at every shape, every compiled thread
-   mapping against ``cholesky`` + ``cholesky_solve`` and the training solve
-   on a grid of batch sizes and widths, which ``fold_route`` is held
-   against, and one system's chain alone), the training solve
-   (``spd_solve_chunked``: the register route beside the shared-memory
-   route at every shape, widths on both sides of each route boundary),
-   singular systems among regular ones on every route of both solves, and
+   beside the kernel's first form at every shape, the blocked route at
+   k = 256 for one query, a serving block and a serving call's batch, every
+   thread mapping against ``cholesky`` + ``cholesky_solve`` and the training
+   solve on a grid of batch sizes and widths, the register route's and the
+   blocked route's, which ``fold_route`` is held against, and one system's
+   chain alone), the training solve (``spd_solve_chunked``: the register or
+   blocked route beside the shared-memory route, the first form, at every
+   shape, widths on both sides of each route boundary, and the tuner's
+   chunks at k = 192 and 256), singular systems among regular ones on every
+   route of both solves, and
    the fused MIPS top-k
    (``mips_topk``: the number of item ranges per case, the merge kernel
    alone, the three-pass TF32 product beside the f32 FMA product, ties
@@ -79,8 +82,10 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      500-user validation split, then one iterative trial of 3 epochs; the
      points against a CPU replay of the sampler, every value above the
      popularity ranking's; B1 and G timed at the largest chunks at every
-     sampled width above 64), and the runner with a profiler over 200 users
-     with ``profile summarize``;
+     sampled width above 64), the k = 256 trial's tables served with
+     fold-in to the 10,000 test users (``serving_k256``, B2 on the blocked
+     route, against a float64 oracle), and the runner with a profiler over
+     200 users with ``profile summarize``;
    - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
      on all the interactions, 3 % of the users (split, ``Pipeline.train``,
      the per-query runner, which folds each user in and scores on the card,
@@ -180,32 +185,47 @@ EXPLICIT_FEATURES = 50
 #: 120); both training phases check it against the chunks they were given
 LARGEST_CHUNK_ROWS = 30024
 
+#: the width the tuner's iterative trial samples (pipelines/als-implicit-search.toml's largest)
+WIDE_FEATURES = 256
+#: the rows of the largest chunk of the tuner's validation split (500 users held out of bench.py's training split)
+TUNER_CHUNK_ROWS = 29936
 #: (B, k) shapes of the fold-in solve's kernel phase: the serving block and
 #: batch at k=64, the explicit family's serving block at k=50, one query's
 #: fold-in in the per-query runner at both widths, then widths on
 #: both sides of every boundary of the register route's templates (32, 64,
 #: 96, 128) and of the route boundary (128 | 129), odd widths, and batches
-#: that are no multiple of the systems a block
+#: that are no multiple of the systems a block; then the blocked route at
+#: k = 256: one tuner query, a serving block, a serving call's batch
 SPD_SHAPES = [
     (1024, 64), (16384, 64), (SERVE_CHUNK, EXPLICIT_FEATURES), (1, FEATURES), (1, EXPLICIT_FEATURES), (1000, 50), (7, 8),
     (1000, 32), (1001, 33), (1023, 63), (1000, 65), (500, 96), (501, 97), (333, 128), (333, 129), (64, 256),
+    (1, WIDE_FEATURES), (SERVE_CHUNK, WIDE_FEATURES), (16384, WIDE_FEATURES),
 ]  # fmt: skip
 SPD_MAIN_SHAPE = (SERVE_CHUNK, FEATURES)
 SPD_EXPLICIT_SHAPE = (SERVE_CHUNK, EXPLICIT_FEATURES)
+SPD_WIDE_SHAPE = (SERVE_CHUNK, WIDE_FEATURES)
 #: (N, k) shapes of the training solve's kernel phase: the largest chunk of
 #: the training split at the implicit and the explicit width, then widths on
 #: both sides of every boundary of the register route's templates (32, 64,
-#: 96, 128) and of the route boundary itself (128 | 129)
+#: 96, 128) and of the route boundary itself (128 | 129); then the blocked
+#: route at the tuner's largest chunk at k = 256 and a chunk at k = 192
 CHUNKED_SHAPES = [
     (LARGEST_CHUNK_ROWS, 64), (16384, 64), (LARGEST_CHUNK_ROWS, EXPLICIT_FEATURES), (1000, 50), (7, 8), (1000, 32),
-    (1000, 33), (1000, 65), (500, 96), (500, 97), (333, 128), (333, 129), (64, 256),
+    (1000, 33), (1000, 65), (500, 96), (500, 97), (333, 128), (333, 129), (64, 256), (TUNER_CHUNK_ROWS, WIDE_FEATURES),
+    (16384, 192),
 ]  # fmt: skip
+CHUNKED_WIDE_SHAPE = (TUNER_CHUNK_ROWS, WIDE_FEATURES)
+#: the blocked route's shapes at which it must also be no slower than cholesky + cholesky_solve
+WIDE_LIBRARY_GATED = {CHUNKED_WIDE_SHAPE, SPD_WIDE_SHAPE}
 #: (N, k, every) batches with a zero system at every ``every``-th place
-SINGULAR_SHAPES = [(1000, 64, 7), (1000, EXPLICIT_FEATURES, 3), (300, 96, 5), (200, 129, 4)]
+SINGULAR_SHAPES = [(1000, 64, 7), (1000, EXPLICIT_FEATURES, 3), (300, 96, 5), (200, 129, 4), (200, WIDE_FEATURES, 4)]
 #: batch sizes and widths on which every thread mapping of the fold-in solve
 #: is timed: what ``fold_route`` is set from
 FOLD_GRID_B = [1, 64, 256, 512, 1024, 4096, 16384]
 FOLD_GRID_K = [32, 50, 64, 96, 128]
+#: the blocked route's grid: one query, a block of a few users, a serving block and a serving call's batch
+FOLD_WIDE_GRID_B = [1, 64, 1024, 16384]
+FOLD_WIDE_GRID_K = [129, 160, 192, 256]
 #: cycles the card spins before a timing starts (over 2 ms), so that the
 #: host has the launches queued before the first one runs
 HOLD_CYCLES = 5_000_000
@@ -458,6 +478,20 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """One call of ``fn`` and its device time in ms by CUDA events, the card
+    held first as in ``cuda_ms``: for the launches that take seconds, whose
+    check doubles as their timing."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def spd_bound(B: int, k: int) -> tuple[float, str]:
     """Least time (ms) for B k-by-k solves: A's lower triangle (all the kernel
     reads of A) and y read once, x written once; Cholesky plus two triangular
@@ -476,32 +510,40 @@ def spd_inputs(rng: np.random.Generator, B: int, k: int, dev):
 
 
 def solve_kernel_phase(
-    name, kernel, plain, shapes, main_shape, explicit_shape, plain_tol: float, seed: int, dev, previous, route_of
+    name, kernel, plain, shapes, main_shape, explicit_shape, wide_shape, plain_tol: float, seed: int, dev, previous, route_of
 ) -> dict:
     """Hold one SPD-solve kernel against its plain version and a float64
     solve at each shape, time kernel, plain version and
     ``cholesky`` + ``cholesky_solve``, and check that a zero system gives
     non-finite output in its own row only.  ``previous`` is the kernel's
-    earlier design (the shared-memory route), held against the plain version
+    first form (the shared-memory route), held against the plain version
     and the float64 solve and timed at the same shapes in the same run;
     ``route_of(B, k)`` names the route the kernel takes.  At the two path
-    shapes the kernel must beat the earlier design and be no slower than the
-    library call.  Returns the main shape's row of the kernels line, with
-    the explicit path's shape under ``explicit`` and every shape's times
-    under ``shapes``."""
+    shapes the kernel must beat the first form and be no slower than the
+    library call; above k = 128 (the blocked route) it must beat the first
+    form at every shape, and be no slower than the library call at the
+    shapes of ``WIDE_LIBRARY_GATED``.  Systems wider than 128 are drawn on
+    the card; at more than 1,000 of them the first form and the plain version
+    are timed over one launch, the one their check makes.  Returns the main shape's row of
+    the kernels line, with the explicit path's shape under ``explicit``, the
+    wide path's (``wide_shape``) under ``wide`` and every shape's times under
+    ``shapes``."""
     rng = np.random.default_rng(seed)
-    row = explicit = None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    row = explicit = wide = None
     by_shape = []
     for B, k in shapes:
-        A, y = spd_inputs(rng, B, k, dev)
+        A, y = spd_inputs_on_card(seed * 1000 + k, B, k, dev) if k > 128 else spd_inputs(rng, B, k, dev)
+        # over 1,000 wide systems the first form and the plain version take up to seconds a launch: the launch of
+        # each one's check below is its timing too
+        one = B > 1000 and k > 128
         x = kernel(A, y)
         torch.cuda.synchronize()
-        p = plain(A, y)
-        torch.cuda.synchronize()
+        p, plain_ms = timed_once(lambda: plain(A, y)) if one else (plain(A, y), None)
         abs_err = float((x - p).abs().max())
         rel_err = abs_err / float(p.abs().max())
         x64 = torch.linalg.solve(A.double(), y.double())
-        xp = previous(A, y)
+        xp, previous_ms = timed_once(lambda: previous(A, y)) if one else (previous(A, y), None)
         torch.cuda.synchronize()
         prev_err = float((xp - p).abs().max() / p.abs().max())
         prev_err64 = float((xp.double() - x64).abs().max() / x64.abs().max())
@@ -509,13 +551,15 @@ def solve_kernel_phase(
             raise AssertionError(f"{name} ({B},{k}): the shared-memory route vs plain {prev_err}, vs float64 {prev_err64}")
         err64 = float((x.double() - x64).abs().max() / x64.abs().max())
         resid = float((A.double() @ x.double()[:, :, None])[:, :, 0].sub(y.double()).abs().max() / y.abs().max())
+        del x64, xp
         if not (np.isfinite(abs_err) and rel_err <= plain_tol):
             raise AssertionError(f"{name} ({B},{k}): kernel vs plain max relative error {rel_err}")
         if not (err64 <= 1e-4 and resid <= 1e-4):
             raise AssertionError(f"{name} ({B},{k}): error vs float64 {err64}, residual {resid}")
         ms = cuda_ms(lambda: kernel(A, y), reps=50)
-        previous_ms = cuda_ms(lambda: previous(A, y), reps=50)
-        plain_ms = cuda_ms(lambda: plain(A, y), reps=3, warm=1)
+        if not one:
+            previous_ms = cuda_ms(lambda: previous(A, y), reps=50)
+            plain_ms = cuda_ms(lambda: plain(A, y), reps=3, warm=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
         bound_ms, bound_by = spd_bound(B, k)
         route = route_of(B, k)
@@ -526,14 +570,20 @@ def solve_kernel_phase(
             f"vs float64 {err64:.3e}; residual {resid:.3e}"
         )
         log(
-            f"{name} B={B} k={k}: route {route}; the shared-memory route, the design before, "
+            f"{name} B={B} k={k}: route {route}; the first form (shared-memory route) "
             f"{previous_ms:.4f} ms in the same run ({previous_ms / ms:.2f}x the kernel's time)"
         )
+        if B == 1 and k > 128:
+            one_sm_ms = (k**3 / 3 + 2 * k * k) / (PEAK_F32_FLOP_PER_S / sms) * 1e3
+            log(f"{name} B=1 k={k}: one system at one SM's f32 rate takes {one_sm_ms * 1e3:.2f} us; the kernel {ms / one_sm_ms:.1f}x it")
         measured = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             solve_route=route, previous_ms=previous_ms,
         )  # fmt: skip
-        by_shape.append(dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, library_ms=lib_ms, rel_err_vs_plain=rel_err))
+        by_shape.append(
+            dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, rel_err_vs_plain=rel_err)
+        )  # fmt: skip
         if (B, k) in (main_shape, explicit_shape):
             # on an idle card the host sets the pace where the wrapper's own time is longer than the kernel's
             torch.cuda.synchronize()
@@ -547,10 +597,18 @@ def solve_kernel_phase(
                 raise AssertionError(f"{name} ({B},{k}): the register route ({ms} ms) must beat the design before ({previous_ms} ms)")
             if not ms <= lib_ms:
                 raise AssertionError(f"{name} ({B},{k}): the kernel ({ms} ms) must be no slower than cholesky + cholesky_solve ({lib_ms} ms)")
+        if k > 128 and not ms < previous_ms:
+            raise AssertionError(f"{name} ({B},{k}): the blocked route ({ms} ms) must beat the first form ({previous_ms} ms)")
+        if (B, k) in WIDE_LIBRARY_GATED and not ms <= lib_ms:
+            raise AssertionError(f"{name} ({B},{k}): the blocked route ({ms} ms) must be no slower than cholesky + cholesky_solve ({lib_ms} ms)")
         if (B, k) == main_shape:
             row = measured
         if (B, k) == explicit_shape:
             explicit = dict(shape=[B, k], **measured)
+        if (B, k) == wide_shape:
+            wide = dict(shape=[B, k], first_form_ms=previous_ms, **measured)
+        # the plain version of the largest shapes takes tens of GB: nothing of one shape outlives it
+        del A, y, x, p
     # a zero system must give non-finite output, as the TPU kernels' do, and
     # leave the other systems alone (explicit ALS's padding rows have A = 0)
     A, y = spd_inputs(rng, 5, FEATURES, dev)
@@ -560,37 +618,42 @@ def solve_kernel_phase(
     if torch.isfinite(x[[1, 3]]).any() or not torch.isfinite(x[[0, 2, 4]]).all():
         raise AssertionError(f"{name}: a zero system must give non-finite output, the others finite")
     log(f"{name} zero systems: non-finite output in their own rows only, as required")
-    return dict(row, explicit=explicit, shapes=by_shape)
+    return dict(row, explicit=explicit, wide=wide, shapes=by_shape)
 
 
 def fold_grid_phase(dev) -> dict:
     """Time every compiled thread mapping of ``spd_solve`` on a grid of batch
     sizes and widths, beside the kernel's first form (the shared-memory
     route), ``spd_solve_chunked`` and ``cholesky`` + ``cholesky_solve`` at
-    the same shape, each mapping held against a float64 solve.  The mapping
-    ``fold_route`` takes must be within 10 % of the fastest at the two
+    the same shape, each mapping held against a float64 solve: the register
+    route's grid, then the blocked route's (k > 128).  The mapping
+    ``fold_route`` takes must be within 10 % of the fastest at the three
     serving shapes.  Then one system's chain alone: the time of B = 1 and of
     B = 132 (a system an SM) over the 2k dependent steps."""
-    from lkpy_tpu_torch.ops.spd_solve import _launch, fold_mappings, fold_route, register_route_info
+    from lkpy_tpu_torch.ops.spd_solve import _launch, blocked_route_info, fold_mappings, fold_route, register_route_info
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
 
     rng = np.random.default_rng(13)
     grid = []
     agree = 0
-    for k in FOLD_GRID_K:
-        A_all, y_all = spd_inputs(rng, max(FOLD_GRID_B), k, dev)
+    widths = [(k, FOLD_GRID_B) for k in FOLD_GRID_K] + [(k, FOLD_WIDE_GRID_B) for k in FOLD_WIDE_GRID_K]
+    for k, batches in widths:
+        A_all, y_all = spd_inputs_on_card(13 * k, max(batches), k, dev) if k > 128 else spd_inputs(rng, max(batches), k, dev)
         x64_all = torch.linalg.solve(A_all.double(), y_all.double())
-        for B in FOLD_GRID_B:
+        for B in batches:
             A, y, x64 = A_all[:B], y_all[:B], x64_all[:B]
             taken = fold_route(B, k)
             ms = {}
             for route, threads in fold_mappings(k):
-                x = _launch(A, y, route, threads)
+                # the first form at a serving call's batch of wide systems takes up to 0.1 s a launch: its check's
+                # launch is its timing
+                once = route == "shared" and B * k > 1_000_000
+                x, once_ms = timed_once(lambda: _launch(A, y, route, threads)) if once else (_launch(A, y, route, threads), None)
                 torch.cuda.synchronize()
                 err64 = float((x.double() - x64).abs().max() / x64.abs().max())
                 if not err64 <= 1e-4:
                     raise AssertionError(f"spd_solve ({B},{k}) {route} over {threads} threads: error vs float64 {err64}")
-                ms[(route, threads)] = cuda_ms(lambda: _launch(A, y, route, threads), reps=50)
+                ms[(route, threads)] = once_ms if once else cuda_ms(lambda: _launch(A, y, route, threads), reps=50 if k <= 128 or B <= 1024 else 20)
             chunked_ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=50)
             lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
             best = min(ms, key=ms.get)
@@ -604,8 +667,9 @@ def fold_grid_phase(dev) -> dict:
             )
             grid.append(dict(B=B, k=k, taken=list(taken), ms={f"{r}-{t}": v for (r, t), v in ms.items()},
                              chunked_ms=chunked_ms, library_ms=lib_ms))  # fmt: skip
-            if (B, k) in (SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE) and not ok:
+            if (B, k) in (SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE, SPD_WIDE_SHAPE) and not ok:
                 raise AssertionError(f"fold_route({B}, {k}) = {taken} loses to {best} by more than 10 %: {ms}")
+        del A_all, y_all, x64_all
     log(f"fold_route: the mapping taken is within 10 % of the fastest on {agree} of {len(grid)} grid points")
     # the floor of one system's dependent chain, the card otherwise idle: one system, and one an SM
     chain = []
@@ -621,7 +685,9 @@ def fold_grid_phase(dev) -> dict:
             chain.append(dict(k=k, threads=threads, one_system_ms=one, one_per_sm_ms=per_sm, steps=2 * k))
     info = [register_route_info(k, t) for k in (32, 64, 96, 128) for r, t in fold_mappings(k) if r == "registers"]
     log(f"spd_solve register route as compiled: {info}")
-    return dict(grid=grid, chain_floor=chain, register_route=info)
+    blocked = [blocked_route_info(t) for r, t in fold_mappings(WIDE_FEATURES) if r == "blocked"]
+    log(f"spd_solve blocked route as compiled: {blocked}")
+    return dict(grid=grid, chain_floor=chain, register_route=info, blocked_route=blocked)
 
 
 def singular_neighbours_phase(dev) -> None:
@@ -3526,7 +3592,9 @@ def solve_case(label: str, B: int, k: int, dev, seed: int, reps: int = 20) -> di
 
     A, y = spd_inputs_on_card(seed, B, k, dev)
     x = spd_solve_chunked(A, y)
-    p = spd_solve_chunked_plain(A, y)
+    # over 1,000 wide systems the plain version takes up to seconds a launch: its check's launch is its timing
+    one = B > 1000 and k > 128
+    p, plain_ms = timed_once(lambda: spd_solve_chunked_plain(A, y)) if one else (spd_solve_chunked_plain(A, y), None)
     torch.cuda.synchronize()
     abs_err = float((x - p).abs().max())
     rel_err = abs_err / float(p.abs().max())
@@ -3535,7 +3603,8 @@ def solve_case(label: str, B: int, k: int, dev, seed: int, reps: int = 20) -> di
     if not (rel_err <= 1e-5 and err64 <= 1e-4):
         raise AssertionError(f"spd_solve_chunked {label} ({B}, {k}): vs plain {rel_err}, vs float64 {err64}")
     ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=reps, warm=min(2, reps))
-    plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=min(3, reps), warm=1)
+    if not one:
+        plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=min(3, reps), warm=1)
     lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
     bound_ms, bound_by = spd_bound(B, k)
     log(
@@ -3850,18 +3919,41 @@ def printed_lists(out: str) -> dict:
 
 def epoch_events(trainer_cls):
     """Wrap ``trainer_cls.train_epoch`` to record a CUDA event pair around
-    every epoch, without waiting for the card, with the trainer's chunks an
-    epoch, and keep the last trainer of each width above
-    ``TUNE_TIMED_ABOVE``; returns the list of (chunks, start, end), the
-    trainers by width and the function that puts the method back."""
+    every epoch, and one around each B1 and G launch inside it (``ops/als.py``'s
+    ``spd_solve_chunked`` and ``gather_gram``), without waiting for the card,
+    with the trainer's chunks an epoch, and keep the last trainer of each
+    width above ``TUNE_TIMED_ABOVE``; returns the list of (chunks, start,
+    end), the list of (epoch, kernel, start, end), the trainers by width and
+    the function that puts the method back."""
+    from lkpy_tpu_torch.ops import als as als_ops
+
     pairs: list = []
+    launches: list = []
     kept: dict = {}
     orig = trainer_cls.train_epoch
+    inner = {name: getattr(als_ops, name) for name in ("spd_solve_chunked", "gather_gram")}
+
+    def timing(name):
+        def call(*args, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = inner[name](*args, **kw)
+            e.record()
+            launches.append((len(pairs), name, s, e))
+            return out
+
+        return call
 
     def timed(self):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        out = orig(self)
+        for name in inner:
+            setattr(als_ops, name, timing(name))
+        try:
+            out = orig(self)
+        finally:
+            for name, fn in inner.items():
+                setattr(als_ops, name, fn)
         e.record()
         pairs.append((sum(c.rows.shape[0] for c in self.u_buckets + self.i_buckets), s, e))
         if self.config.embedding_size > TUNE_TIMED_ABOVE:
@@ -3869,7 +3961,57 @@ def epoch_events(trainer_cls):
         return out
 
     trainer_cls.train_epoch = timed
-    return pairs, kept, lambda: setattr(trainer_cls, "train_epoch", orig)
+    return pairs, launches, kept, lambda: setattr(trainer_cls, "train_epoch", orig)
+
+
+def wide_serving_step(dev, trainer, data, users) -> dict:
+    """``serving_k256``: the tables of a k = 256 trainer served with fold-in
+    through ``device_recommend`` to ``users`` (n = 100, blocks of 1,024: B2
+    on the blocked route and G once a block), held as the serving phase holds
+    its lists: a float64 oracle on 256 users (recall@100 ≥ 0.99, score error
+    ≤ 1e-3), no history item in any list.  Returns the launches."""
+    from lkpy_tpu_torch.batch.device import device_recommend
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.ops.spd_solve import fold_route
+
+    trainer.finalize()
+    trained = trainer.scorer
+    fold = ImplicitMFScorer(features=WIDE_FEATURES, weight=trained.config.weight, user_embeddings=True)
+    fold.load_parameters(trained.get_parameters())
+    fold._OtOr, fold.users, fold.items = trained._OtOr, trained.users, trained.items
+    # the users the trainer's data knows (a validation user whose every item was held out is not in it)
+    users = users[fold.users.numbers(users, missing="negative") >= 0]
+    matrix = data.interaction_matrix()
+    csr = matrix.csr(None)
+    blocks = -(-len(users) // SERVE_CHUNK)
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    recs = device_recommend(fold, users, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+    took = time.perf_counter() - t
+    counts = read_counts()
+    log(
+        f"serving_k256: device_recommend of {len(users)} users at k={WIDE_FEATURES} with fold-in, {took:.3f}s, B2 on "
+        f"{fold_route(SERVE_CHUNK, WIDE_FEATURES)}; launches {counts}"
+    )
+    if counts["spd_solve"] != blocks or counts["gather_gram"] != blocks or counts["spd_solve_chunked"] or counts["gather_rows"]:
+        raise AssertionError(f"serving at k={WIDE_FEATURES} must launch B2 and G once a block ({blocks}), no B1 or P: {counts}")
+    if len(recs) != len(users):
+        raise AssertionError(f"{len(recs)} lists for {len(users)} users")
+    check_lists(recs, csr, fold.users, SERVE_N)
+    Y64 = fold.item_embeddings.double().cpu().numpy()
+    otor = fold._OtOr.double().cpu().numpy()
+    hits, score_err = 0, 0.0
+    for uid in users[:256]:
+        il = recs.lookup(uid)
+        top, sc = oracle_topn(csr.row_cols(fold.users.number(uid)), Y64, otor, fold.config.weight, SERVE_N)
+        hits += len(np.intersect1d(il.numbers(), top))
+        score_err = max(score_err, float(np.abs(il.scores() - sc[il.numbers()]).max() / np.abs(sc[top]).max()))
+    recall = hits / (256 * SERVE_N)
+    log(f"serving_k256 vs float64 (256 users): recall@{SERVE_N} {recall:.5f}, max relative score error {score_err:.3e}")
+    if recall < 0.99 or score_err > 1e-3:
+        raise AssertionError(f"serving_k256 oracle check failed: recall {recall}, score error {score_err}")
+    return counts
 
 
 def tooling_phase(dev, split: dict) -> dict:
@@ -3885,30 +4027,57 @@ def tooling_phase(dev, split: dict) -> dict:
     - ``cli_recommend``: ``recommend -m model.pkl.gz`` for 20 test users in
       this process (B2 and G once a block), and as ``python -m
       lkpy_tpu_torch recommend`` in a fresh interpreter that imports no JAX;
-      ``doctor`` there names the card;
+      ``doctor`` there names the card (the two fresh interpreters run beside
+      the profiled runner and the tuner, and are checked after them);
     - ``tuning``: ``PipelineTuner`` over ``pipelines/als-implicit-search.toml``
       on a validation split of ``TUNE_USERS`` users (B1 and G once a chunk on
       every epoch, G, B2 and P once a measured query), its points against a
       CPU replay of the sampler and every value against the popularity
       ranking's; ``tuning_iterative``: one iterative trial of
-      ``TUNE_ITER_EPOCHS`` epochs; B1 and G timed at the largest chunks at
-      each sampled width above ``TUNE_TIMED_ABOVE``;
+      ``TUNE_ITER_EPOCHS`` epochs at k = 256, its epochs' B1 and G device
+      time; B1 and G timed at the largest chunks at each sampled width above
+      ``TUNE_TIMED_ABOVE``;
+    - ``serving_k256``: that trial's tables served with fold-in to the test
+      users (``wide_serving_step``: B2 on the blocked route);
     - ``profile``: ``BatchPipelineRunner.run(..., profile=)`` over 200 users
       of the CLI-trained pipeline (G, B2 and P once a query), then
       ``profile summarize`` of its CSV.
 
     Returns the launches of each path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from lkpy_tpu_torch.config import lkpy_tpu_config
+
+    if lkpy_tpu_config().training_perf.ladder_ratio != 1.35:
+        raise AssertionError("the ladder an earlier phase configured was not restored")
+    users = np.unique(split["test_u"])
+    paths: dict[str, dict] = {}
+    tmp = Path(tempfile.mkdtemp(prefix="lkpy-tpu-torch-tooling-"))
+    fresh_dir = Path(tempfile.mkdtemp(prefix="lkpy-tpu-torch-fresh-"))
+    fresh_pool = ThreadPoolExecutor(1)
+    try:
+        return tooling_paths(dev, split, users, paths, tmp, fresh_dir, fresh_pool)
+    finally:
+        # the fresh interpreters end within their timeout whatever happened here
+        fresh_pool.shutdown(wait=True)
+        shutil.rmtree(fresh_dir, ignore_errors=True)
+
+
+def tooling_paths(dev, split: dict, users, paths: dict, tmp, fresh_dir, fresh_pool) -> dict:
+    """The body of ``tooling_phase``: its paths in order, the fresh
+    interpreters of ``cli_recommend`` running in ``fresh_pool`` beside the
+    profiled runner and the tuner."""
     import gzip
     import pickle
     import shutil
-    import tempfile
     from pathlib import Path
 
     import pandas as pd
 
     from lkpy_tpu_torch.batch import BatchPipelineRunner, recommend
     from lkpy_tpu_torch.batch import device as batch_device
-    from lkpy_tpu_torch.config import lkpy_tpu_config
     from lkpy_tpu_torch.data import ItemList
     from lkpy_tpu_torch.models.als import ImplicitMFTrainer
     from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route
@@ -3923,11 +4092,6 @@ def tooling_phase(dev, split: dict) -> dict:
     pipelines = here / "pipelines"
     ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
     per_epoch = split["chunks_per_epoch"]
-    if lkpy_tpu_config().training_perf.ladder_ratio != 1.35:
-        raise AssertionError("the ladder an earlier phase configured was not restored")
-    users = np.unique(test_u)
-    paths: dict[str, dict] = {}
-    tmp = Path(tempfile.mkdtemp(prefix="lkpy-tpu-torch-tooling-"))
     try:
         # ---- cli_training: spec file → config → train → pickle
         t = time.perf_counter()
@@ -3979,9 +4143,12 @@ def tooling_phase(dev, split: dict) -> dict:
         if not (nd >= NDCG_MIN and abs(nd - split["pipeline_ndcg"]) <= NDCG_PIPELINE_TOL):
             raise AssertionError(f"the CLI-trained NDCG@10 {nd} must be >= {NDCG_MIN} and within {NDCG_PIPELINE_TOL} of {split['pipeline_ndcg']}")
 
-        # ---- cli_recommend: in this process and in a fresh interpreter
+        # ---- cli_recommend: in this process, and in a fresh interpreter beside doctor's, which run on a copy of
+        # the model while this process goes on to the profiled runner and the tuner (checked at the phase's end)
         few = [int(u) for u in users[:PER_QUERY_USERS]]
         args = ["recommend", "-m", tmp / "model.pkl.gz", "-n", 10, *few]
+        shutil.copy(tmp / "model.pkl.gz", fresh_dir / "model.pkl.gz")
+        fresh = fresh_pool.submit(cli_subprocesses, ["recommend", "-m", fresh_dir / "model.pkl.gz", *args[3:]], ["doctor"])
         zero_counts()
         t = time.perf_counter()
         here_out = cli_invoke(args)
@@ -3989,24 +4156,14 @@ def tooling_phase(dev, split: dict) -> dict:
         paths["cli_recommend"] = rec_counts = read_counts()
         if rec_counts["spd_solve"] != 1 or rec_counts["gather_gram"] != 1 or rec_counts["spd_solve_chunked"] or rec_counts["gather_rows"]:
             raise AssertionError(f"cli recommend of {len(few)} users must launch B2 and G once (one block), no B1 or P: {rec_counts}")
-        (sub_out, sub_err, sub_s), (doc_out, _, doc_s) = cli_subprocesses(args, ["doctor"])
-        here_lists, sub_lists = printed_lists(here_out), printed_lists(sub_out)
-        if sorted(here_lists) != sorted(few) or sorted(sub_lists) != sorted(few):
-            raise AssertionError(f"cli recommend printed lists for {sorted(here_lists)} here and {sorted(sub_lists)} in the subprocess, not {few}")
+        here_lists = printed_lists(here_out)
+        want_lists = {u: recs.lookup(u) for u in few}
+        if sorted(here_lists) != sorted(few):
+            raise AssertionError(f"cli recommend printed lists for {sorted(here_lists)}, not {few}")
         for u in few:
-            want_il = recs.lookup(u)
-            for label, got in (("in-process", here_lists[u]), ("subprocess", sub_lists[u])):
-                if not same_ids_at_clear_gaps(ItemList(item_ids=[i for i, _ in got]), want_il):
-                    raise AssertionError(f"user {u}: {label} cli recommend {got} differs from {list(want_il.ids())} at clear gaps")
-        log(
-            f"cli recommend of {len(few)} users: in-process {here_s:.2f}s (launches {rec_counts}), python -m lkpy_tpu_torch recommend "
-            f"{sub_s:.2f}s in a fresh interpreter beside doctor's ({sub_err.strip().splitlines()[-1]}); both equal the batch lists at clear gaps; "
-            f"the printed lists and scores identical {here_lists == sub_lists}"
-        )
-        name = torch.cuda.get_device_name(0)
-        log(f"python -m lkpy_tpu_torch doctor ({doc_s:.2f}s): " + " | ".join(doc_out.strip().splitlines()))
-        if name not in doc_out:
-            raise AssertionError(f"doctor must name the card {name!r}:\n{doc_out}")
+            if not same_ids_at_clear_gaps(ItemList(item_ids=[i for i, _ in here_lists[u]]), want_lists[u]):
+                raise AssertionError(f"user {u}: in-process cli recommend {here_lists[u]} differs from {list(want_lists[u].ids())} at clear gaps")
+        log(f"cli recommend of {len(few)} users: in-process {here_s:.2f}s (launches {rec_counts}), equal to the batch lists at clear gaps")
 
         # ---- profile: the runner over PROFILE_USERS users with a profiler, then profile summarize
         runner = BatchPipelineRunner(progress=False)
@@ -4058,7 +4215,12 @@ def tooling_phase(dev, split: dict) -> dict:
             after = read_counts()
             ms = [s.elapsed_time(e) for _, s, e in pairs[pairs_from:]]
             plans = {n for n, _, _ in pairs[pairs_from:]}
-            per_point.append((point, {k: after[k] - before[k] for k in after}, ms, list(measured), plans))
+            # each epoch's device time in B1 and in G
+            kernel_ms = {
+                name: [sum(s.elapsed_time(e) for ep, n, s, e in launches if ep == i and n == name) for i in range(pairs_from, len(pairs))]
+                for name in ("spd_solve_chunked", "gather_gram")
+            }
+            per_point.append((point, {k: after[k] - before[k] for k in after}, ms, list(measured), plans, kernel_ms))
             measured.clear()
             return point
 
@@ -4068,7 +4230,7 @@ def tooling_phase(dev, split: dict) -> dict:
             return out
 
         tuner._run_trial, tuner._measure = trial, measure
-        pairs, kept, restore = epoch_events(ImplicitMFTrainer)
+        pairs, launches, kept, restore = epoch_events(ImplicitMFTrainer)
         try:
             zero_counts()
             t = time.perf_counter()
@@ -4078,23 +4240,28 @@ def tooling_phase(dev, split: dict) -> dict:
             counts = read_counts()
         finally:
             restore()
-        for point, launches, ms, values, plans in per_point:
+        for point, point_launches, ms, values, plans, kernel_ms in per_point:
             if len(plans) != 1:
                 raise AssertionError(f"{label}: one trial's epochs ran {plans} chunks")
             v_plan = plans.pop()
             epochs = point.epochs or tuner._make_scorer(point.params).config.epochs
             log(
                 f"{label} point embedding_size={point.params['embedding_size']}, params {point.params}: {spec.metric} {point.value:.5f} "
-                f"(per measured epoch {values}), {point.time:.2f}s, {epochs} epochs of {v_plan} chunks, epoch ms {[round(m, 3) for m in ms]}, "
-                f"launches {launches}"
+                f"(per measured epoch {values}), {point.time:.2f}s, {epochs} epochs of {v_plan} chunks, epoch ms {[round(m, 3) for m in ms]} "
+                f"(B1 device ms {[round(m, 3) for m in kernel_ms['spd_solve_chunked']]}, G {[round(m, 3) for m in kernel_ms['gather_gram']]}), "
+                f"launches {point_launches}"
             )
+            epoch_ms[label].append(dict(embedding_size=point.params["embedding_size"], epoch_ms=ms, b1_ms=kernel_ms["spd_solve_chunked"],
+                                        g_ms=kernel_ms["gather_gram"]))  # fmt: skip
             n_measures = len(values)
             want = {
                 "spd_solve_chunked": v_plan * epochs, "gather_gram": v_plan * epochs + queries * n_measures,
                 "spd_solve": queries * n_measures, "gather_rows": queries * n_measures, "mips_topk": 0,
             }  # fmt: skip
-            if launches != want or len(ms) != epochs:
-                raise AssertionError(f"{label}: a point must launch B1 and G once a chunk and G, B2 and P once a measured query: {launches} != {want}")
+            if point_launches != want or len(ms) != epochs:
+                raise AssertionError(
+                    f"{label}: a point must launch B1 and G once a chunk and G, B2 and P once a measured query: {point_launches} != {want}"
+                )
             if not (np.isfinite(point.value) and point.value > pop):
                 raise AssertionError(f"{label}: {spec.metric} {point.value} must be finite and above the popularity ranking's {pop}")
         log(f"{label}: {len(res.points)} points in {took:.1f}s, best {res.best_params} ({res.best_value:.5f}); popularity {pop:.5f}; launches {counts}")
@@ -4115,12 +4282,41 @@ def tooling_phase(dev, split: dict) -> dict:
         return res, counts
 
     trainers: dict = {}
+    epoch_ms: dict = {"tuning": [], "tuning iterative": []}
     tuner_seed = {"tuning": TUNE_SEED, "tuning iterative": TUNE_ITER_SEED}
     res, paths["tuning"] = run_tuner(PipelineTuner(spec, vsplit, rng=TUNE_SEED), "tuning")
     iter_spec = spec.model_copy(update={"method": "iterative", "max_epochs": TUNE_ITER_EPOCHS, "max_points": 1})
     ires, paths["tuning_iterative"] = run_tuner(PipelineTuner(iter_spec, vsplit, rng=TUNE_ITER_SEED), "tuning iterative")
     if ires.points[0].epochs != TUNE_ITER_EPOCHS:
         raise AssertionError(f"the iterative trial must run {TUNE_ITER_EPOCHS} epochs: {ires.points[0].epochs}")
+    (iterative,) = epoch_ms["tuning iterative"]
+    log(
+        f"tuning iterative at embedding_size {iterative['embedding_size']}: epoch ms {[round(m, 3) for m in iterative['epoch_ms']]}, "
+        f"of which B1 {[round(m, 3) for m in iterative['b1_ms']]} and G {[round(m, 3) for m in iterative['g_ms']]} ms of device time"
+    )
+
+    # ---- serving_k256: the iterative trial's k = 256 tables served with fold-in to bench.py's test users
+    if WIDE_FEATURES not in trainers:
+        raise AssertionError(f"the iterative trial must train at embedding_size {WIDE_FEATURES}: {sorted(trainers)}")
+    paths["serving_k256"] = wide_serving_step(dev, trainers[WIDE_FEATURES], vsplit.train, users)
+
+    # ---- cli_recommend's fresh interpreters, started before the profiled runner
+    (sub_out, sub_err, sub_s), (doc_out, _, doc_s) = fresh.result()
+    sub_lists = printed_lists(sub_out)
+    if sorted(sub_lists) != sorted(few):
+        raise AssertionError(f"cli recommend printed lists for {sorted(sub_lists)} in the subprocess, not {few}")
+    for u in few:
+        if not same_ids_at_clear_gaps(ItemList(item_ids=[i for i, _ in sub_lists[u]]), want_lists[u]):
+            raise AssertionError(f"user {u}: subprocess cli recommend {sub_lists[u]} differs from {list(want_lists[u].ids())} at clear gaps")
+    log(
+        f"python -m lkpy_tpu_torch recommend of {len(few)} users: {sub_s:.2f}s in a fresh interpreter beside doctor's, both beside "
+        f"the profiled runner and the tuner ({sub_err.strip().splitlines()[-1]}); equal to the batch lists at clear gaps; the printed "
+        f"lists and scores identical to the in-process ones {here_lists == sub_lists}"
+    )
+    name = torch.cuda.get_device_name(0)
+    log(f"python -m lkpy_tpu_torch doctor ({doc_s:.2f}s): " + " | ".join(doc_out.strip().splitlines()))
+    if name not in doc_out:
+        raise AssertionError(f"doctor must name the card {name!r}:\n{doc_out}")
 
     # B1 and G at each sampled width above TUNE_TIMED_ABOVE, at the largest chunks of the last trial's trainer of that
     # width, its trained tables as G's right-hand tables; B1 on SPD systems of the chunk's shape drawn on the card
@@ -4132,11 +4328,11 @@ def tooling_phase(dev, split: dict) -> dict:
         trainer = trainers.pop(k)
         u_chunk = max(trainer.u_buckets, key=lambda c: c.cols.shape[1] * c.cols.shape[2])
         label = f"tuner k={k} ({solve_route(k)} route) user chunk {tuple(u_chunk.cols.shape[1:])}"
-        solves.append(solve_case(label, u_chunk.cols.shape[1], k, dev, 30 + k, reps=1))
+        solves.append(solve_case(label, u_chunk.cols.shape[1], k, dev, 30 + k, reps=20))
         grams += gram_chunk_cases(trainer, k, implicit=True)
         del trainer
     log(f"tuning: widths timed {widths}")
-    split["tooling"] = dict(solves=solves, grams=grams, widths=widths)
+    split["tooling"] = dict(solves=solves, grams=grams, widths=widths, iterative=iterative)
     return paths
 
 
@@ -4175,6 +4371,18 @@ def main() -> int:
         _build.load(name)
         return time.perf_counter() - ts
 
+    # bench.py's interactions, made once on the host (vectorised NumPy) while
+    # the kernels build and the kernel phases run; each path continues the
+    # generator from the state it had right after them, as bench.py does
+    def make_interactions():
+        ts = time.perf_counter()
+        gen = np.random.default_rng(42)
+        made = synth_interactions(gen)
+        return made, gen.bit_generator.state, time.perf_counter() - ts
+
+    data_pool = ThreadPoolExecutor(1)
+    data_future = data_pool.submit(make_interactions)
+
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     names = _build.sources()
@@ -4196,16 +4404,18 @@ def main() -> int:
         log(f"phase {name}: {phase_s[name]:.1f}s")
         return out
 
-    # plain_tol 1e-5: the register route rounds otherwise than the plain version (fmaf, a reciprocal of the
-    # pivot); on these well-conditioned systems (eigenvalues in about [1, 5]) they differ by under 1e-6
+    # plain_tol 1e-5: the register and blocked routes round otherwise than the plain version (fmaf, a reciprocal
+    # or reciprocal square root of the pivot); on these well-conditioned systems (eigenvalues in about [1, 5]) they
+    # differ by under 1e-6
     spd = phase(
         "spd_solve", solve_kernel_phase, "spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE,
-        1e-5, 7, dev, lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]), lambda B, k: "%s x%d" % fold_route(B, k),
+        SPD_WIDE_SHAPE, 1e-5, 7, dev, lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]),
+        lambda B, k: "%s x%d" % fold_route(B, k),
     )  # fmt: skip
     spd.update(phase("fold_grid", fold_grid_phase, dev))
     chunked = phase(
         "spd_solve_chunked", solve_kernel_phase, "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES,
-        CHUNKED_MAIN_SHAPE, CHUNKED_EXPLICIT_SHAPE, 1e-5, 8, dev, lambda A, y: launch_chunked(A, y, "shared"),
+        CHUNKED_MAIN_SHAPE, CHUNKED_EXPLICIT_SHAPE, CHUNKED_WIDE_SHAPE, 1e-5, 8, dev, lambda A, y: launch_chunked(A, y, "shared"),
         lambda N, k: solve_route(k),
     )  # fmt: skip
     phase("singular_neighbours", singular_neighbours_phase, dev)
@@ -4215,14 +4425,11 @@ def main() -> int:
     gather_probe = phase("gather_kernel", gather_kernel_phase, dev)
     candidates = next(r for r in gather_probe if r["label"] == f"per-query ({N_ITEMS}, {FEATURES}) x {N_ITEMS - 103}")
 
-    # bench.py's interactions, made once; each path continues the generator
-    # from the state it had right after them, as bench.py does
     t0 = time.perf_counter()
-    rng = np.random.default_rng(42)
-    users, items = synth_interactions(rng)
-    state = rng.bit_generator.state
+    (users, items), state, made_s = data_future.result()
+    data_pool.shutdown()
     phase_s["interactions"] = time.perf_counter() - t0
-    log(f"interactions: {len(users)} ({phase_s['interactions']:.1f}s to generate)")
+    log(f"interactions: {len(users)} ({made_s:.1f}s to generate beside the build and the kernel phases, {phase_s['interactions']:.1f}s waited)")
 
     def continued() -> np.random.Generator:
         g = np.random.default_rng()
@@ -4282,6 +4489,7 @@ def main() -> int:
         ("tuning", "spd_solve_chunked"), ("tuning", "gather_gram"), ("tuning", "spd_solve"), ("tuning", "gather_rows"),
         ("tuning_iterative", "spd_solve_chunked"), ("tuning_iterative", "gather_gram"), ("tuning_iterative", "spd_solve"),
         ("tuning_iterative", "gather_rows"), ("profile", "gather_gram"), ("profile", "spd_solve"), ("profile", "gather_rows"),
+        ("serving_k256", "spd_solve"), ("serving_k256", "gather_gram"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
@@ -4305,6 +4513,7 @@ def main() -> int:
             **chunked,
             ladder_shapes=split["data_config"]["solves"],
             tuner_shapes=split["tooling"]["solves"],
+            tuner_iterative=split["tooling"]["iterative"],
         ),
         dict(
             name="mips_topk",

@@ -17,8 +17,12 @@
 // (ops/spd_solve.py::fold_route):
 //   k <= 128: the system held in registers (lkt_spd_solve_reg_f32), over 32,
 //             64 or 128 threads a system;
-//   k <= 256: the system held in shared memory, one block a system
-//             (lkt_spd_solve_shared_f32), the kernel's first form.
+//   129 <= k <= 256: the blocked Cholesky of spd_blocked.cuh, one block of
+//             256 or 512 threads a system (lkt_spd_solve_blocked_f32; it
+//             takes any k <= 256).
+// The kernel's first form, a packed triangle in shared memory and one block a
+// system (lkt_spd_solve_shared_f32, any k <= 256), stays as the yardstick;
+// no path takes it.
 //
 // Bound at the serving path's shape (one block of B = 1024 users, k = 64):
 //   bytes: only A's lower triangle is read, so B*k(k+1)/2*4 + 2*B*k*4 =
@@ -31,6 +35,16 @@
 // block's 1,024 systems are less than one wave of the card, so the launch
 // lasts as long as its slowest system's chain, and the design shortens the
 // chain rather than the traffic.
+//
+// Above k = 128 (bound at (1024, 256): 136.8 MB -> 0.0408 ms; 5.86 Gflop ->
+// 0.0875 ms, so the operations bound it, and one system alone is 11.3 us of
+// one SM's f32 rate) the blocked route (spd_blocked.cuh, shared with the
+// training solve) runs a system's k^3/6 multiply-adds as rank-32 updates of
+// 32 x 32 tiles from registers and keeps its k pivots on one warp.  A serving
+// block is 8 waves of one system an SM at k = 256, and a single query one
+// system on one SM, so the time is a system's: 512 threads a system share the
+// tile updates more widely than 256, which leave room for two blocks an SM up
+// to k = 192.
 //
 // The register route (spd_register.cuh, shared with the training solve:
 // LDL^T with one reciprocal a step and fmaf, the pivot column through a
@@ -62,6 +76,7 @@
 // operation, as spd_solve_plain in ops/spd_solve.py, and the result equal to
 // the bit.  The register route agrees with it to rounding.
 
+#include "spd_blocked.cuh"
 #include "spd_register.cuh"
 
 namespace {
@@ -130,6 +145,17 @@ __global__ void spd_solve_shared_kernel(const float* __restrict__ A, const float
 }
 
 // ---------------------------------------------------------------------------
+// the blocked route: spd_blocked.cuh, one system a block of 256 or 512 threads
+// ---------------------------------------------------------------------------
+
+template <int NT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+spd_solve_blocked_kernel(const float* __restrict__ A, const float* __restrict__ y, float* __restrict__ x, int k,
+                         int vec4) {
+  lkt_blk::solve_system<NT>(A, y, x, k, vec4 != 0);
+}
+
+// ---------------------------------------------------------------------------
 // the register route: spd_register.cuh, with the fold-in solve's mappings
 // ---------------------------------------------------------------------------
 
@@ -192,7 +218,24 @@ extern "C" int lkt_spd_solve_reg_info(int k, int threads, int* regs, int* smem_b
   });
 }
 
-// The shared-memory route, 1 <= k <= 256.
+// The blocked route, 1 <= k <= 256, over `threads` (256 or 512) threads a system.
+extern "C" int lkt_spd_solve_blocked_f32(const float* A, const float* y, float* x, long long B, int k, int threads,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (threads == 256) return lkt_blk::launch<256>(spd_solve_blocked_kernel<256, 2>, A, y, x, B, k, st);
+  if (threads == 512) return lkt_blk::launch<512>(spd_solve_blocked_kernel<512, 1>, A, y, x, B, k, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers a thread and local (spill) bytes a thread of the blocked route's
+// instance over `threads` threads a system, as compiled.
+extern "C" int lkt_spd_solve_blocked_info(int threads, int* regs, int* local_bytes) {
+  if (threads == 256) return lkt_blk::info(spd_solve_blocked_kernel<256, 2>, regs, local_bytes);
+  if (threads == 512) return lkt_blk::info(spd_solve_blocked_kernel<512, 1>, regs, local_bytes);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared-memory route, the kernel's first form, 1 <= k <= 256.
 extern "C" int lkt_spd_solve_shared_f32(const float* A, const float* y, float* x, int B, int k, void* stream) {
   if (B <= 0 || k < 1 || k > 256) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = k <= 64 ? 128 : 256;

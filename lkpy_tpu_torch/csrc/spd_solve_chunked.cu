@@ -2,8 +2,13 @@
 // (sm_90a).  Two routes, chosen from k alone by the Python wrapper
 // (ops/spd_solve_chunked.py::solve_route):
 //   k <= 128: the system held in registers (lkt_spd_solve_chunked_reg_f32);
-//   k <= 256: the system held in shared memory, one warp per system
-//             (lkt_spd_solve_chunked_shared_f32), the general route.
+//   129 <= k <= 256: the blocked Cholesky of spd_blocked.cuh, one block of
+//             256 threads a system up to k = 192 (two blocks an SM) and 512
+//             threads above (lkt_spd_solve_chunked_blocked_f32; it takes any
+//             k <= 256).
+// The kernel's first form, one warp a system over a packed triangle in shared
+// memory (lkt_spd_solve_chunked_shared_f32, any k <= 256), stays as the
+// yardstick the two are timed against; no path takes it.
 //
 // Replaces the TPU kernel lkpy_tpu/ops/pallas_gj.py::_gj_block_kernel
 // (entry point spd_solve_lanes_chunked, rank-8 blocked Gauss-Jordan on the
@@ -30,6 +35,16 @@
 // trailing update costs three shared loads, a store and a walk of the packed
 // triangle's index for one multiply and subtract.
 //
+// Bound at the widest chunk the tuner's k = 256 epochs give (N = 29,936):
+//   bytes: 29,936 * (32,896 + 512) * 4 = 4.00 GB -> 1.19 ms;
+//   f32 work: k^3/3 + 2k^2 = 5.72 Mflop a system, 171 Gflop -> 2.56 ms.
+// Here the operations bound it.  The blocked route (spd_blocked.cuh) puts a
+// system in a block, loads the lower triangle into 32 x 32 tiles with
+// cp.async and runs the k^3/6 multiply-adds of the trailing updates as
+// rank-32 tile updates from registers (two 16-byte shared loads feed 16
+// fmaf), the k pivots on one warp in registers; the first form spent four
+// shared accesses on each multiply-subtract, with one warp an SM.
+//
 // The register route (spd_register.cuh, which the fold-in solve shares).
 // T = PR x PC threads hold a system's lower triangle in registers through an
 // LDL^T elimination with the forward substitution riding along, the pivot
@@ -49,13 +64,15 @@
 // addressing leave no room for a 24-warp (80-register) build.
 //
 // Arithmetic: the register route multiplies by a correctly rounded reciprocal
-// of the pivot and contracts into fmaf, so it agrees with
-// spd_solve_chunked_plain (ops/spd_solve_chunked.py) to rounding, not to the
-// bit.  The shared-memory route keeps the plain version's operation order
-// with __fmul_rn/__fsub_rn/__fdiv_rn and rounds like it, operation for
-// operation.  A pivot that is not positive makes the register route's
-// reciprocal NaN, which is what sqrtf of it gives on the other route.
+// of the pivot and the blocked route by a reciprocal square root, both
+// contracting into fmaf, so they agree with spd_solve_chunked_plain
+// (ops/spd_solve_chunked.py) to rounding, not to the bit.  The shared-memory
+// route keeps the plain version's operation order with
+// __fmul_rn/__fsub_rn/__fdiv_rn and rounds like it, operation for operation.
+// A pivot that is not positive makes the other routes' reciprocal NaN, which
+// is what sqrtf of it gives on the shared-memory route.
 
+#include "spd_blocked.cuh"
 #include "spd_register.cuh"
 
 namespace {
@@ -83,6 +100,17 @@ using Cfg32 = Cfg<32, 8, 4>;
 using Cfg64 = Cfg<64, 8, 4>;
 using Cfg96 = Cfg<96, 8, 8>;
 using Cfg128 = Cfg<128, 16, 8>;
+
+// ---------------------------------------------------------------------------
+// the blocked route: spd_blocked.cuh, one system a block
+// ---------------------------------------------------------------------------
+
+template <int NT, int MIN_BLOCKS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+spd_solve_chunked_blocked_kernel(const float* __restrict__ A, const float* __restrict__ y, float* __restrict__ x, int k,
+                                 int vec4) {
+  lkt_blk::solve_system<NT>(A, y, x, k, vec4 != 0);
+}
 
 // ---------------------------------------------------------------------------
 // the shared-memory route: one warp per system, any k <= 256
@@ -198,7 +226,16 @@ extern "C" int lkt_spd_solve_chunked_reg_info(int k, int* regs, int* smem_bytes,
   return lkt_reg::info<Cfg128>(spd_solve_chunked_reg_kernel<Cfg128, 1>, regs, smem_bytes, threads, local_bytes);
 }
 
-// The shared-memory route, 1 <= k <= 256.
+// The blocked route, 1 <= k <= 256: 256 threads a system (two blocks an SM)
+// up to k = 192, 512 above, where one block fills an SM's shared memory.
+extern "C" int lkt_spd_solve_chunked_blocked_f32(const float* A, const float* y, float* x, long long n, int k,
+                                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > 192) return lkt_blk::launch<512>(spd_solve_chunked_blocked_kernel<512, 1>, A, y, x, n, k, st);
+  return lkt_blk::launch<256>(spd_solve_chunked_blocked_kernel<256, 2>, A, y, x, n, k, st);
+}
+
+// The shared-memory route, the kernel's first form, 1 <= k <= 256.
 extern "C" int lkt_spd_solve_chunked_shared_f32(const float* A, const float* y, float* x, long long n, int k,
                                                 void* stream) {
   if (n <= 0 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);

@@ -4,8 +4,8 @@ Batched small-SPD solve: the ALS fold-in solver.
 Port of ``lkpy_tpu/ops/pallas_solve.py::spd_solve``, whose Pallas kernel
 (``_gj_kernel``, Gauss-Jordan in VMEM) becomes the hand-written CUDA kernels
 of ``csrc/spd_solve.cu``.  k is taken as it is (1 ≤ k ≤ 256) and B likewise:
-no padding in device memory.  Two routes, chosen from (B, k) alone
-(:func:`fold_route`):
+no padding in device memory.  Two routes are chosen from (B, k) alone
+(:func:`fold_route`), and a third is the kernel's first form:
 
 - ``"registers"``, k ≤ 128: the system's lower triangle lives in the
   registers of 32, 64 or 128 threads through an LDLᵀ elimination and both
@@ -16,10 +16,20 @@ no padding in device memory.  Two routes, chosen from (B, k) alone
   over more threads, a large one takes one warp a system.  Fused
   multiply-adds and a reciprocal of the pivot: agrees with the plain version
   to rounding, not to the bit.
-- ``"shared"``, 128 < k ≤ 256: one thread block per system, a packed lower
-  triangle in shared memory, Cholesky with the forward substitution folded
-  in, then the back substitution, in the plain version's operation order
-  (equal to it to the bit).
+- ``"blocked"``, 128 < k ≤ 256: a blocked Cholesky, one block of 256 or 512
+  threads a system (``csrc/spd_blocked.cuh``, shared with the training
+  solve): the lower triangle in 32 × 32 tiles of shared memory, each panel's
+  diagonal tile factored by one warp in registers, the rows below it solved
+  against it with z riding along, the trailing triangle updated by register
+  micro-tiles, then the back substitution a panel at a time.  A reciprocal
+  square root of each pivot and fused multiply-adds: agrees with the plain
+  version to rounding.  :func:`spd_solve_blocked_plain` is its panel order
+  in PyTorch.
+- ``"shared"``, the kernel's first form, any k ≤ 256: one thread block per
+  system, a packed lower triangle in shared memory, Cholesky with the
+  forward substitution folded in, then the back substitution, in the plain
+  version's operation order (equal to it to the bit).  No shape takes it;
+  it stays launchable through :func:`_launch` as the yardstick.
 
 :func:`spd_solve` launches the kernel for CUDA tensors and runs
 :func:`spd_solve_plain` for CPU tensors.  ``spd_solve.launches`` counts
@@ -32,9 +42,9 @@ import ctypes
 
 import torch
 
-__all__ = ["MAX_REGISTER_K", "fold_mappings", "fold_route", "spd_solve", "spd_solve_plain"]
+__all__ = ["MAX_REGISTER_K", "fold_mappings", "fold_route", "spd_solve", "spd_solve_blocked_plain", "spd_solve_plain"]
 
-#: the largest k the shared-memory route's layout takes
+#: the largest k the kernels take (the blocked route's eight tiles of 32)
 MAX_K = 256
 #: the largest k the register route has a template instance for
 MAX_REGISTER_K = 128
@@ -46,6 +56,18 @@ REGISTER_THREADS = {32: (32,), 64: (32, 64, 128), 96: (64,), 128: (128,)}
 #: an SM to itself, two up to eight warps an SM; past that the mapping with
 #: fewer threads a system was the faster
 SPREAD_MAX_WARPS = {128: 528, 64: 1056}
+#: threads a system of the blocked route's compiled mappings
+BLOCKED_THREADS = (256, 512)
+#: the blocked route's tile width, and a panel's
+BLOCK = 32
+#: systems up to which a system of width 129–192 takes 512 threads, and the
+#: width from which every batch does (where one block fills an SM's shared
+#: memory): set from the grid of B ∈ {1, 64, 1024, 16384} × k ∈ {129, 160,
+#: 192, 256} that ``chip_smoke.py`` measures on an H100, where 512 threads
+#: were 1–3 % faster up to B = 64 and at every B at k = 256, and 256 threads
+#: (two blocks an SM) 1.4–1.5× faster from B = 1,024 at k ≤ 192
+BLOCKED_SPREAD_MAX_B = 132
+BLOCKED_SPREAD_FROM_K = 193
 
 _lib = None
 
@@ -58,24 +80,34 @@ def padded_width(k: int) -> int:
 
 
 def fold_mappings(k: int) -> list[tuple[str, int]]:
-    """Every compiled (route, threads a system) that takes width ``k``: the
-    register route's mappings, narrowest first, then the shared-memory route
-    (one block of 128 or 256 threads a system)."""
+    """Every (route, threads a system) that ``fold_route`` may take at width
+    ``k``, then the kernel's first form: the register route's mappings,
+    narrowest first, up to :data:`MAX_REGISTER_K`, the blocked route's above
+    it, then the shared-memory route (one block of 128 or 256 threads a
+    system)."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"spd_solve takes 1 <= k <= {MAX_K}, got k={k}")
-    regs = [("registers", t) for t in REGISTER_THREADS[padded_width(k)]] if k <= MAX_REGISTER_K else []
-    return regs + [("shared", 128 if k <= 64 else 256)]
+    if k <= MAX_REGISTER_K:
+        taken = [("registers", t) for t in REGISTER_THREADS[padded_width(k)]]
+    else:
+        taken = [("blocked", t) for t in BLOCKED_THREADS]
+    return taken + [("shared", 128 if k <= 64 else 256)]
 
 
 def fold_route(B: int, k: int) -> tuple[str, int]:
     """The kernel route a batch of ``B`` systems of width ``k`` takes on the
     card, and the threads that hold one system: ``("registers", 32 | 64 |
-    128)`` up to :data:`MAX_REGISTER_K`, ``("shared", 256)`` above it.  Of
-    the mappings compiled for the width, the widest whose launch stays
-    within :data:`SPREAD_MAX_WARPS` warps is taken, else the narrowest."""
+    128)`` up to :data:`MAX_REGISTER_K`, ``("blocked", 256 | 512)`` above it.
+    Of the register mappings compiled for the width, the widest whose launch
+    stays within :data:`SPREAD_MAX_WARPS` warps is taken, else the
+    narrowest; a blocked system takes 512 threads from
+    :data:`BLOCKED_SPREAD_FROM_K` on or up to :data:`BLOCKED_SPREAD_MAX_B`
+    systems, else 256."""
     if B < 1:
         raise ValueError(f"spd_solve's kernel takes B >= 1, got B={B}")
     choices = fold_mappings(k)
+    if k > MAX_REGISTER_K:
+        return ("blocked", 512 if k >= BLOCKED_SPREAD_FROM_K or B <= BLOCKED_SPREAD_MAX_B else 256)
     for route, threads in reversed(choices[1:-1]):
         if B * threads // 32 <= SPREAD_MAX_WARPS[threads]:
             return route, threads
@@ -90,9 +122,14 @@ def _library():
         lib = load("spd_solve")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.lkt_spd_solve_reg_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.lkt_spd_solve_blocked_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.lkt_spd_solve_shared_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
         lib.lkt_spd_solve_reg_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
-        for fn in (lib.lkt_spd_solve_reg_f32, lib.lkt_spd_solve_shared_f32, lib.lkt_spd_solve_reg_info):
+        lib.lkt_spd_solve_blocked_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
+        for fn in (
+            lib.lkt_spd_solve_reg_f32, lib.lkt_spd_solve_blocked_f32, lib.lkt_spd_solve_shared_f32,
+            lib.lkt_spd_solve_reg_info, lib.lkt_spd_solve_blocked_info,
+        ):  # fmt: skip
             fn.restype = i32
         _lib = lib
     return _lib
@@ -110,6 +147,17 @@ def register_route_info(k: int, threads: int) -> dict:
     return dict(
         width=padded_width(k), threads=threads, registers=regs, shared_bytes=smem, block_threads=block, local_bytes=local
     )
+
+
+def blocked_route_info(threads: int) -> dict:
+    """Registers and spilled bytes a thread of the blocked route's instance
+    over ``threads`` threads a system, as compiled (needs the card's
+    toolkit)."""
+    out = [ctypes.c_int(0) for _ in range(2)]
+    err = _library().lkt_spd_solve_blocked_info(threads, *(ctypes.byref(o) for o in out))
+    if err != 0:
+        raise RuntimeError(f"spd_solve: no blocked-route instance over {threads} threads (CUDA error {err})")
+    return dict(threads=threads, registers=out[0].value, local_bytes=out[1].value)
 
 
 def _check(A: torch.Tensor, y: torch.Tensor) -> tuple[int, int]:
@@ -155,13 +203,16 @@ spd_solve.launches = 0
 
 def _launch(A: torch.Tensor, y: torch.Tensor, route: str, threads: int) -> torch.Tensor:
     """Launch the kernel of ``route`` on CUDA tensors with ``threads`` threads
-    a system (``"shared"`` takes any k and sets its own threads, so the routes
-    and mappings can be timed side by side at one shape)."""
+    a system (``"blocked"`` takes any k, ``"shared"`` too and sets its own
+    threads, so the routes and mappings can be timed side by side at one
+    shape)."""
     B, k = _check(A, y)
     if A.device.type != "cuda":
         raise ValueError(f"spd_solve runs on cuda or cpu, not {A.device}")
     if route == "registers" and (route, threads) not in fold_mappings(k):
         raise ValueError(f"the register route has no instance for k={k} over {threads} threads a system")
+    if route == "blocked" and threads not in BLOCKED_THREADS:
+        raise ValueError(f"the blocked route has instances over {BLOCKED_THREADS} threads a system, not {threads}")
     if not (A.is_contiguous() and y.is_contiguous()):
         raise ValueError("spd_solve's kernel takes contiguous A and y")
     x = torch.empty_like(y)
@@ -172,10 +223,12 @@ def _launch(A: torch.Tensor, y: torch.Tensor, route: str, threads: int) -> torch
         stream = torch.cuda.current_stream(A.device).cuda_stream
         if route == "registers":
             err = lib.lkt_spd_solve_reg_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, threads, stream)
+        elif route == "blocked":
+            err = lib.lkt_spd_solve_blocked_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, threads, stream)
         elif route == "shared":
             err = lib.lkt_spd_solve_shared_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, stream)
         else:
-            raise ValueError(f"spd_solve has the routes 'registers' and 'shared', not {route!r}")
+            raise ValueError(f"spd_solve has the routes 'registers', 'blocked' and 'shared', not {route!r}")
     if err != 0:
         raise RuntimeError(f"spd_solve kernel ({route}, {threads} threads) launch failed with CUDA error {err} (B={B}, k={k})")
     spd_solve.launches += 1
@@ -188,8 +241,9 @@ def spd_solve_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     substitution; each product, difference and quotient rounded once.  The
     shared-memory route walks the same operations in the same order and
     equals it to the bit; the register route eliminates the same columns
-    without the square root and with fused multiply-adds, and agrees to
-    rounding.  Works on any device."""
+    without the square root and with fused multiply-adds, the blocked route
+    in panels (:func:`spd_solve_blocked_plain`), and both agree to rounding.
+    Works on any device."""
     _check(A, y)
     k = y.shape[1]
     L = A.clone()
@@ -209,3 +263,61 @@ def spd_solve_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         x[:, j] = xj
         z[:, :j] -= L[:, j, :j] * xj[:, None]
     return x
+
+
+def _solve_block_rows(rows: torch.Tensor, D: torch.Tensor, dinv: torch.Tensor) -> torch.Tensor:
+    """Rows (B, m, w) solved against the factored diagonal block D (B, w, w)
+    in place, as the kernel solves a panel row: x_c = a_c / L[c][c], then
+    a_c' -= x_c L[c'][c] for c' > c."""
+    for c in range(D.shape[1]):
+        xc = rows[:, :, c] * dinv[:, c, None]
+        rows[:, :, c] = xc
+        rows[:, :, c + 1 :] -= xc[:, :, None] * D[:, None, c + 1 :, c]
+    return rows
+
+
+def spd_solve_blocked_plain(A: torch.Tensor, y: torch.Tensor, nb: int = BLOCK) -> torch.Tensor:
+    """The blocked route's panel order in PyTorch, panels of ``nb`` columns
+    (the last one narrower where ``nb`` does not divide k; the kernel pads
+    with an identity block instead, which changes nothing): the diagonal
+    block factored a column at a time with a reciprocal square root of each
+    pivot, the rows below it and z's rows solved against it, the rank-``nb``
+    update of the trailing triangle and of z; then each diagonal block's
+    inverse (its identity rows solved against it) and the back substitution
+    with Lᵀ a panel at a time from the last, a product with the inverse's
+    transpose.  Only the lower triangle of ``A`` is read; a pivot that is not
+    positive gives NaN, which fills that system's row.  Works on any device;
+    the tests hold it against the JAX package's solve and the kernel's
+    rounding is its own."""
+    _check(A, y)
+    B, k = y.shape
+    L = torch.tril(A)
+    z = y.clone()
+    dinv = torch.empty_like(y)
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+    starts = range(0, k, nb)
+    for p0 in starts:
+        p1 = min(p0 + nb, k)
+        for j in range(p0, p1):
+            piv = L[:, j, j]
+            inv = torch.where(piv > 0, torch.rsqrt(piv), nan)
+            dinv[:, j] = inv
+            L[:, j:p1, j] *= inv[:, None]
+            col = L[:, j + 1 : p1, j]
+            L[:, j + 1 : p1, j + 1 : p1] -= col[:, :, None] * col[:, None, :]
+        # the rows below the diagonal block, and z's panel rows as one more row
+        rows = torch.cat([L[:, p1:, p0:p1], z[:, None, p0:p1]], dim=1)
+        _solve_block_rows(rows, L[:, p0:p1, p0:p1], dinv[:, p0:p1])
+        L[:, p1:, p0:p1] = rows[:, :-1]
+        z[:, p0:p1] = rows[:, -1]
+        L21 = L[:, p1:, p0:p1]
+        L[:, p1:, p1:] -= L21 @ L21.transpose(1, 2)
+        z[:, p1:] -= (L21 @ z[:, p0:p1, None])[:, :, 0]
+    for p0 in reversed(starts):
+        p1 = min(p0 + nb, k)
+        w = p1 - p0
+        # row c of inv_t: the solve of e_c, column c of the block's inverse
+        inv_t = _solve_block_rows(torch.eye(w, dtype=A.dtype, device=A.device).repeat(B, 1, 1), L[:, p0:p1, p0:p1], dinv[:, p0:p1])
+        r = z[:, p0:p1] - (L[:, p1:, p0:p1].transpose(1, 2) @ z[:, p1:, None])[:, :, 0]
+        z[:, p0:p1] = (inv_t @ r[:, :, None])[:, :, 0]
+    return z

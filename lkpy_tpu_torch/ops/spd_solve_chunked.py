@@ -6,7 +6,8 @@ kernel (``_gj_block_kernel``, blocked Gauss-Jordan with the batch on the
 TPU's lanes) becomes the hand-written CUDA kernels of
 ``csrc/spd_solve_chunked.cu``.  The batch comes first, with the TPU kernel's
 C chunks of B systems flattened into N = C·B, and k is taken as it is
-(1 ≤ k ≤ 256).  Two routes, chosen from k alone (:func:`solve_route`):
+(1 ≤ k ≤ 256).  Two routes are chosen from k alone (:func:`solve_route`),
+and a third is the kernel's first form:
 
 - ``"registers"``, k ≤ 128: a warp (two or four warps from k = 65 on) holds
   the system's lower triangle in registers through an LDLᵀ elimination and
@@ -14,9 +15,21 @@ C chunks of B systems flattened into N = C·B, and k is taken as it is
   shares); k is padded to 32, 64, 96 or 128 inside the kernel.
   It uses fused multiply-adds and a reciprocal of the pivot, so it agrees
   with the plain version to rounding, not to the bit.
-- ``"shared"``, 128 < k ≤ 256: one warp per system, a packed lower triangle
-  in shared memory, Cholesky with the forward substitution folded in, then
-  the back substitution, in the plain version's operation order.
+- ``"blocked"``, 128 < k ≤ 256: a blocked Cholesky, one block a system, 256
+  threads up to k = 192 (two blocks an SM) and 512 above
+  (``csrc/spd_blocked.cuh``, shared with the fold-in solve): the lower
+  triangle in 32 × 32 tiles of shared memory, each panel's diagonal tile
+  factored by one warp in registers, the rows below it and z's rows solved
+  against it, the trailing triangle updated by register micro-tiles, then
+  the back substitution a panel at a time.  A reciprocal square root of each
+  pivot and fused multiply-adds: agrees with the plain version to rounding.
+  At (29936, 256), the tuner's widest chunk, the operations bound it: 5.72
+  Mflop a system, 2.56 ms at the card's f32 rate.
+- ``"shared"``, the kernel's first form, any k ≤ 256: one warp per system, a
+  packed lower triangle in shared memory, Cholesky with the forward
+  substitution folded in, then the back substitution, in the plain version's
+  operation order.  No width takes it; :func:`_launch` keeps it as the
+  yardstick.
 
 :func:`spd_solve_chunked` launches the kernel for CUDA tensors and runs
 :func:`spd_solve_chunked_plain` for CPU tensors.
@@ -41,10 +54,10 @@ _fns: dict[str, object] = {}
 
 def solve_route(k: int) -> str:
     """The kernel route a width takes on the card: ``"registers"`` up to
-    :data:`MAX_REGISTER_K`, ``"shared"`` above it."""
+    :data:`MAX_REGISTER_K`, ``"blocked"`` above it."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"spd_solve_chunked takes 1 <= k <= {MAX_K}, got k={k}")
-    return "registers" if k <= MAX_REGISTER_K else "shared"
+    return "registers" if k <= MAX_REGISTER_K else "blocked"
 
 
 def _kernel(route: str):
@@ -53,7 +66,11 @@ def _kernel(route: str):
         from lkpy_tpu_torch.ops._build import load
 
         lib = load("spd_solve_chunked")
-        fn = {"registers": lib.lkt_spd_solve_chunked_reg_f32, "shared": lib.lkt_spd_solve_chunked_shared_f32}[route]
+        fn = {
+            "registers": lib.lkt_spd_solve_chunked_reg_f32,
+            "blocked": lib.lkt_spd_solve_chunked_blocked_f32,
+            "shared": lib.lkt_spd_solve_chunked_shared_f32,
+        }[route]
         fn.argtypes = [
             ctypes.c_void_p,
             ctypes.c_void_p,
@@ -127,11 +144,14 @@ spd_solve_chunked.launches = 0
 
 
 def _launch(A: torch.Tensor, y: torch.Tensor, route: str) -> torch.Tensor:
-    """Launch the kernel of ``route`` on CUDA tensors (``"shared"`` takes any
-    k, so the two routes can be timed side by side at one shape)."""
+    """Launch the kernel of ``route`` on CUDA tensors (``"blocked"`` and
+    ``"shared"`` take any k, so the routes can be timed side by side at one
+    shape)."""
     N, k = _check(A, y)
     if A.device.type != "cuda":
         raise ValueError(f"spd_solve_chunked runs on cuda or cpu, not {A.device}")
+    if route not in ("registers", "blocked", "shared"):
+        raise ValueError(f"spd_solve_chunked has the routes 'registers', 'blocked' and 'shared', not {route!r}")
     if route == "registers" and k > MAX_REGISTER_K:
         raise ValueError(f"the register route takes k <= {MAX_REGISTER_K}, got k={k}")
     if not (A.is_contiguous() and y.is_contiguous()):
@@ -156,6 +176,8 @@ def spd_solve_chunked_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_plain`).  The
     shared-memory route walks the same operations in the same order; the
     register route eliminates the same columns without the square root and
-    with fused multiply-adds, and agrees to rounding.  Works on any device."""
+    with fused multiply-adds, the blocked route in panels
+    (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_blocked_plain`), and
+    both agree to rounding.  Works on any device."""
     _check(A, y)
     return spd_solve_plain(A, y)

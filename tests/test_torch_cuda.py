@@ -23,7 +23,7 @@ from lkpy_tpu_torch.ops.gather_rows import _launch as launch_gather
 from lkpy_tpu_torch.ops.mips_topk import INT32_MAX, _launch as launch_topk
 from lkpy_tpu_torch.ops.mips_topk import _merge_lists, _merge_lists_plain, choose_splits, mips_topk, mips_topk_plain, range_items
 from lkpy_tpu_torch.ops.sparse import bucket_rows
-from lkpy_tpu_torch.ops.spd_solve import fold_mappings, fold_route, spd_solve, spd_solve_plain
+from lkpy_tpu_torch.ops.spd_solve import BLOCKED_THREADS, fold_mappings, fold_route, spd_solve, spd_solve_plain
 from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
 from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
 from lkpy_tpu_torch.ops.spd_solve_chunked import solve_route, spd_solve_chunked, spd_solve_chunked_plain
@@ -67,7 +67,7 @@ def _assert_fold_agrees(x, plain, A, y, route):
         _assert_solves_agree(x, plain, A, y)
 
 
-@pytest.mark.parametrize("k", [8, 50, 63, 64, 65, 128, 129, 256])
+@pytest.mark.parametrize("k", [8, 50, 63, 64, 65, 128, 129, 160, 255, 256])
 @pytest.mark.parametrize("B", [1, 37, 1001])  # 37 and 1001: no multiple of the two or four systems a block
 def test_fold_mappings_match_plain_and_float64(cuda, B, k):
     rng = np.random.default_rng(1000 * B + k)
@@ -75,7 +75,8 @@ def test_fold_mappings_match_plain_and_float64(cuda, B, k):
     plain = spd_solve_plain(A, y)
     mappings = fold_mappings(k)
     assert fold_route(B, k) in mappings
-    for route, threads in mappings:
+    # the blocked route takes any width, so it is held at the register route's too
+    for route, threads in dict.fromkeys(mappings + [("blocked", t) for t in BLOCKED_THREADS]):
         before = spd_solve.launches
         x = launch_fold(A, y, route, threads)
         torch.cuda.synchronize()
@@ -85,7 +86,7 @@ def test_fold_mappings_match_plain_and_float64(cuda, B, k):
         launch_fold(A, y, "registers", 96)
 
 
-@pytest.mark.parametrize("k,offset", [(64, 1), (64, 2), (50, 1), (50, 2), (63, 1), (8, 3)])
+@pytest.mark.parametrize("k,offset", [(64, 1), (64, 2), (50, 1), (50, 2), (63, 1), (8, 3), (256, 1), (160, 2), (129, 3)])
 def test_fold_misaligned_inputs_take_the_narrow_loads(cuda, k, offset):
     # A starting `offset` floats into its storage is aligned to 4 or 8 bytes, not 16: the kernel loads it
     # float by float or in 8-byte halves, and the result is the aligned one's to the bit
@@ -98,7 +99,7 @@ def test_fold_misaligned_inputs_take_the_narrow_loads(cuda, k, offset):
         assert torch.equal(launch_fold(shifted, y_shifted, route, threads), launch_fold(A, y, route, threads))
 
 
-@pytest.mark.parametrize("k", [50, 64, 96, 128, 129])
+@pytest.mark.parametrize("k", [50, 64, 96, 128, 129, 256])
 def test_fold_zero_systems_leave_their_neighbours_alone(cuda, k):
     # the explicit fold-in of a user without history has A = 0
     rng = np.random.default_rng(8)
@@ -121,6 +122,34 @@ def test_fold_register_route_reads_the_lower_triangle_only(cuda):
     junk[:, torch.triu(torch.ones(50, 50, dtype=torch.bool, device=cuda), 1)] = float("nan")
     for route, threads in fold_mappings(50):
         assert torch.equal(launch_fold(junk, y, route, threads), launch_fold(A, y, route, threads))
+
+
+def test_blocked_route_reads_the_lower_triangle_only(cuda):
+    rng = np.random.default_rng(4)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 9, 140))
+    junk = A.clone()
+    junk[:, torch.triu(torch.ones(140, 140, dtype=torch.bool, device=cuda), 1)] = float("nan")
+    for threads in BLOCKED_THREADS:
+        assert torch.equal(launch_fold(junk, y, "blocked", threads), launch_fold(A, y, "blocked", threads))
+    assert torch.equal(launch_chunked(junk, y, "blocked"), launch_chunked(A, y, "blocked"))
+
+
+@pytest.mark.parametrize("k", [64, 129, 256])
+def test_blocked_route_launches_once_a_call_and_takes_cuda_tensors_only(cuda, k):
+    rng = np.random.default_rng(k)
+    A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, 5, k))
+    for launch, args, wrapper in [(launch_chunked, ("blocked",), spd_solve_chunked)] + [
+        (launch_fold, ("blocked", t), spd_solve) for t in BLOCKED_THREADS
+    ]:
+        before = wrapper.launches
+        x = launch(A, y, *args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1 and x.device == A.device
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            launch(A.cpu(), y.cpu(), *args)
+        assert wrapper.launches == before + 1
+    with pytest.raises(ValueError):
+        launch_fold(A, y, "blocked", 128)
 
 
 def test_kernel_zero_diagonal_is_nonfinite(cuda):
@@ -185,13 +214,14 @@ def _assert_solves_agree(x, plain, A, y):
     assert float(((x - plain).abs() / scale).max()) <= max(3 * err_plain, 1e-6)
 
 
-@pytest.mark.parametrize("k", [1, 7, 8, 31, 32, 33, 50, 64, 65, 96, 128, 129, 256])
+@pytest.mark.parametrize("k", [1, 7, 8, 31, 32, 33, 50, 64, 65, 96, 128, 129, 160, 255, 256])
 @pytest.mark.parametrize("N", [1, 7, 1000])
 def test_chunked_routes_match_plain(cuda, N, k):
     rng = np.random.default_rng(1000 * N + k)
     A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, N, k))
     plain = spd_solve_chunked_plain(A, y)
-    routes = dict.fromkeys([solve_route(k), "shared"])  # the route the wrapper takes, and the general one
+    # the route the wrapper takes, the blocked one (any width) and the first form
+    routes = dict.fromkeys([solve_route(k), "blocked", "shared"])
     assert ("registers" in routes) == (k <= 128)
     for route in routes:
         before = spd_solve_chunked.launches
@@ -208,7 +238,7 @@ def test_chunked_routes_match_plain(cuda, N, k):
             launch_chunked(A, y, "registers")
 
 
-@pytest.mark.parametrize("k", [50, 64, 96, 129])
+@pytest.mark.parametrize("k", [50, 64, 96, 129, 256])
 def test_chunked_kernel_zero_systems_are_nonfinite(cuda, k):
     rng = np.random.default_rng(8)
     A, y = _spd_batch(rng, 20, k)
@@ -1118,7 +1148,7 @@ def _planted_interactions(seed=256, n_users=400, n_items=300, groups=8, own=25, 
 
 @pytest.mark.parametrize("method", ["random", "iterative"])
 def test_tuner_trial_at_256_on_card_matches_cpu(cuda, method):
-    """A tuner trial at ``embedding_size`` 256 (B1's shared-memory route and
+    """A tuner trial at ``embedding_size`` 256 (B1's blocked route and
     G at k = 256 inside the tuner) on the card against the same trial on the
     CPU: each measured epoch's item table within 1e-4 relative Frobenius,
     the metrics within 1e-4 relative."""
@@ -1142,7 +1172,7 @@ def test_tuner_trial_at_256_on_card_matches_cpu(cuda, method):
         max_epochs=2,
         fixed={"epochs": 2, "user_embeddings": True, "regularization": 10.0},
     )
-    assert solve_route(256) == "shared"
+    assert solve_route(256) == "blocked"
     runs = {}
     for device in ("cuda", "cpu"):
         before = (spd_solve_chunked.launches, gather_gram.launches)

@@ -17,6 +17,7 @@ from lkpy_tpu.ops.pallas_solve import spd_solve as jax_spd_solve
 from lkpy_tpu_torch import resolve_device
 from lkpy_tpu_torch.ops import _build
 from lkpy_tpu_torch.ops.spd_solve import (
+    BLOCKED_THREADS,
     MAX_REGISTER_K,
     REGISTER_THREADS,
     SPREAD_MAX_WARPS,
@@ -125,12 +126,14 @@ def test_default_device_needs_cuda(monkeypatch):
     + [(B, k, ("registers", 32)) for B in (529, 1024, 4096, 16384) for k in (33, 50, 64)]
     + [(B, k, ("registers", 64)) for B in (1, 1024, 16384) for k in (65, 96)]
     + [(B, k, ("registers", 128)) for B in (1, 1024, 16384) for k in (97, 128)]
-    + [(B, k, ("shared", 256)) for B in (1, 1024, 16384) for k in (129, 200, 256)],
+    + [(B, k, ("blocked", 512)) for B in (1, 64, 132) for k in (129, 160, 192)]
+    + [(B, k, ("blocked", 256)) for B in (133, 1024, 16384) for k in (129, 160, 192)]
+    + [(B, k, ("blocked", 512)) for B in (1, 1024, 16384) for k in (193, 200, 256)],
 )
 def test_fold_route_is_chosen_from_the_shape_alone(B, k, route):
     assert fold_route(B, k) == route
     assert (k <= MAX_REGISTER_K) == (route[0] == "registers")
-    assert route in fold_mappings(k)
+    assert route in fold_mappings(k) and route[0] != "shared"
 
 
 @pytest.mark.parametrize("B,k", [(1, 0), (1, -3), (1, 257), (1024, 257), (0, 64), (-1, 64)])
@@ -158,13 +161,15 @@ def test_every_mapping_is_whole_warps_in_ascending_order():
     assert max(REGISTER_THREADS) == MAX_REGISTER_K
     assert fold_mappings(64) == [("registers", 32), ("registers", 64), ("registers", 128), ("shared", 128)]
     assert fold_mappings(65) == [("registers", 64), ("shared", 256)]
-    assert fold_mappings(129) == [("shared", 256)]
+    assert fold_mappings(129) == [("blocked", 256), ("blocked", 512), ("shared", 256)]
+    assert fold_mappings(256) == [("blocked", t) for t in BLOCKED_THREADS] + [("shared", 256)]
 
 
 def test_launch_takes_cuda_tensors_only():
     A, y = (torch.from_numpy(a) for a in _spd_batch(np.random.default_rng(2), 3, 8))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        _launch(A, y, "registers", 32)
+    for route, threads in [("registers", 32), ("blocked", 256), ("blocked", 512), ("shared", 128)]:
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            _launch(A, y, route, threads)
     meta = torch.eye(4, device="meta").expand(2, 4, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         spd_solve(meta, torch.zeros(2, 4, device="meta"))
@@ -193,9 +198,9 @@ def test_only_the_lower_triangle_is_read():
 
 
 def test_a_kernel_source_is_hashed_with_the_headers_it_includes(tmp_path, monkeypatch):
-    # the two solves share csrc/spd_register.cuh; the top-k kernel includes no header of the port
+    # the two solves share csrc/spd_blocked.cuh and csrc/spd_register.cuh; the top-k kernel includes no header of the port
     for name in ("spd_solve", "spd_solve_chunked"):
-        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "spd_register.cuh"]
+        assert [p.name for p in _build.source_files(name)] == [f"{name}.cu", "spd_blocked.cuh", "spd_register.cuh"]
     assert [p.name for p in _build.source_files("mips_topk")] == ["mips_topk.cu"]
     monkeypatch.setattr(_build, "_CSRC", tmp_path)
     (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n  # include "b.cuh"\n// #include "not_a_directive.cuh"\n')

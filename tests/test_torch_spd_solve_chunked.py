@@ -17,6 +17,7 @@ from lkpy_tpu.ops.pallas_gj import spd_solve_lanes_chunked
 from lkpy_tpu_torch.ops.spd_solve import spd_solve_plain
 from lkpy_tpu_torch.ops.spd_solve_chunked import (
     MAX_REGISTER_K,
+    _launch,
     REGISTER_WIDTHS,
     padded_width,
     solve_route,
@@ -96,6 +97,15 @@ def test_rejects_bad_input(A_shape, y_shape, dtype, err):
         spd_solve_chunked(torch.zeros(A_shape, dtype=dtype), torch.zeros(y_shape, dtype=dtype))
 
 
+@pytest.mark.parametrize("route", ["registers", "blocked", "shared"])
+def test_launch_takes_cuda_tensors_only(route):
+    A, y = (torch.from_numpy(a) for a in _spd_batch(np.random.default_rng(2), 3, 8))
+    before = spd_solve_chunked.launches
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        _launch(A, y, route)
+    assert spd_solve_chunked.launches == before
+
+
 def test_rejects_other_devices():
     A = torch.eye(4, device="meta").expand(2, 4, 4)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -105,7 +115,7 @@ def test_rejects_other_devices():
 @pytest.mark.parametrize(
     "k,route",
     [(1, "registers"), (32, "registers"), (50, "registers"), (64, "registers"), (65, "registers"), (96, "registers"),
-     (128, "registers"), (129, "shared"), (200, "shared"), (256, "shared")],
+     (128, "registers"), (129, "blocked"), (200, "blocked"), (256, "blocked")],
 )  # fmt: skip
 def test_route_is_chosen_from_k_alone(k, route):
     assert solve_route(k) == route
