@@ -78,7 +78,7 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      in this process, NDCG@10 against the pipeline's), ``recommend`` of 20
      test users in this process and as ``python -m lkpy_tpu_torch`` in a
      fresh interpreter that imports no JAX, ``doctor``, ``PipelineTuner``
-     over ``pipelines/als-implicit-search.toml`` (3 of its 30 points on a
+     over ``pipelines/als-implicit-search.toml`` (2 of its 30 points on a
      500-user validation split, then one iterative trial of 3 epochs; the
      points against a CPU replay of the sampler, every value above the
      popularity ranking's; B1 and G timed at the largest chunks at every
@@ -87,20 +87,20 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      route, against a float64 oracle), and the runner with a profiler over
      200 users with ``profile summarize``;
    - offline evaluation: ``quick_measure_model`` of ``ImplicitMFScorer``
-     on all the interactions, 3 % of the users (split, ``Pipeline.train``,
+     on all the interactions, 0.5 % of the users (split, ``Pipeline.train``,
      the per-query runner, which folds each user in and scores on the card,
      ``RunAnalysis`` against the script's own means),
      the same pipeline through the device route, then of
      ``BiasedMFScorer`` with ``predicts_ratings=True`` on bench.py's
-     synthetic ratings, 2 % of the users (RMSE against the bias model's on
+     synthetic ratings, 0.25 % of the users (RMSE against the bias model's on
      the same split);
    - the item-kNN similarity build of bench.py's section 4
      (``normalize_item_matrix`` + ``similarity_topk(normed, 64,
      user_major=ui)``, twice, then once on the synthetic ratings), each
      table held against float64 cosines on 256 items;
    - the item-item family through ``Pipeline.train`` and the per-query
-     runner of ``batch.recommend``: item kNN (1,000 test users, NDCG@10),
-     user kNN (200), EASE over all 27,000 items (200, its inverse held to
+     runner of ``batch.recommend``: item kNN (500 test users, NDCG@10),
+     user kNN (100), EASE over all 27,000 items (100, its inverse held to
      a backward error), lists against float64 oracles over the port's own
      table or weights, and the explicit item kNN's held-out RMSE beside the
      bias model's; these paths launch none of the five kernels;
@@ -125,7 +125,21 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      and association rules (probability and lift; sampled entries against
      float64 counts); every scorer's 20 per-query lists against a float64
      oracle over its own tables (the row gather once a call), and FunkSVD,
-     BiasedSVD and NMF through the device route for 1,000 test users.
+     BiasedSVD and NMF through the device route for 1,000 test users;
+   - the mesh (``mesh_phase``): two slots of the card as a ``data = 2``
+     mesh, ``ImplicitMFScorer.train`` with ``TrainingOptions(mesh=)`` from
+     the training phase's seed (the JAX rounding's chunk shapes, B1 and G
+     once a non-empty slab counted a slot, the tables against the
+     unsharded ones, NDCG@10, the epoch timed) and ``device_recommend(mesh=)``
+     of the 16,384 users (B2 and G once a slab, the lists against the
+     unsharded call's, recall against float64); as a ``model = 2`` mesh,
+     ``sharded_matmul_topk`` of 4,096 rows against the 500,000-row table
+     (B3 once a shard, float64 k-th scores) and the item-kNN build dense,
+     streaming and through ``ItemKNNScorer`` (each table against the
+     ``knn_build_phase``'s, peak memory); two processes of
+     ``distributed_recommend`` on the card over gloo (``--mesh-child``,
+     the pipeline phase's tables through ``state``; the merged lists, the
+     log relay, no JAX) and ``dryrun_multichip(8)``.
    The serving path's calls also carry ``timings`` (the JAX package's four
    keys, each copy between host and card a trace entry).
 4. Logs every phase's wall time, prints one JSON line describing each
@@ -147,6 +161,7 @@ were set from).
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import subprocess
@@ -291,12 +306,12 @@ PER_QUERY_USERS = 20
 NDCG_PIPELINE_TOL = 0.005
 
 #: quick_measure_model's user sample in the evaluation phase: the reference's
-#: 0.2 cut to 0.01 (1,380 users; 0.05 until the zoo phase came, 0.03 until the
-#: tooling phase came) for implicit feedback and 0.005 (690; 0.02 before the
-#: tooling phase) for ratings, since its runner serves one query at a time on
-#: the host
-EVAL_USER_FRAC = 0.01
-EVAL_EXPLICIT_USER_FRAC = 0.005
+#: 0.2 cut to 0.005 (690 users; 0.05 until the zoo phase came, 0.03 until the
+#: tooling phase came, 0.01 until the mesh phase came) for implicit feedback
+#: and 0.0025 (345; 0.02 before the tooling phase, 0.005 before the mesh
+#: phase) for ratings, since its runner serves one query at a time on the host
+EVAL_USER_FRAC = 0.005
+EVAL_EXPLICIT_USER_FRAC = 0.0025
 EVAL_N = 20
 #: users on which the runner's lists must equal the device route's, at least
 EVAL_MIN_COMPARED = 200
@@ -320,10 +335,10 @@ KNN_ORACLE_ITEMS = 256
 #: a returned sim within this of its float64 cosine, and no lower than the
 #: float64 k-th sim less this
 KNN_SIM_TOL = 1e-5
-#: test users through the per-query runner: item kNN, user kNN, EASE
-KNN_USERS = 1_000
-UKNN_USERS = 200
-EASE_USERS = 200
+#: test users through the per-query runner: item kNN, user kNN, EASE (halved for the mesh phase, PERF.md §4)
+KNN_USERS = 500
+UKNN_USERS = 100
+EASE_USERS = 100
 #: of those, lists held against a float64 oracle
 KNN_ORACLE_USERS = 20
 UKNN_ORACLE_USERS = 5
@@ -387,7 +402,7 @@ ZOO_NMF_TOL = 1e-6
 ZOO_ORTHO_TOL = 1e-4
 ZOO_SLIM_BLOCK = 256
 #: cut from the config's 100 (PERF.md §4, reduced); the first block is timed alone first
-ZOO_SLIM_ITERS = 10
+ZOO_SLIM_ITERS = 5
 ZOO_SLIM_ORACLE_COLUMNS = 8
 ZOO_SLIM_TOL = 1e-4
 ZOO_ASSOC_COLUMNS = 16
@@ -410,7 +425,7 @@ FAIR_LIST_LEN = 200
 TOOL_SEED = 42
 #: the tuner's validation split: this many users of bench.py's training set (the search file's 30 points → TUNE_POINTS)
 TUNE_USERS = 500
-TUNE_POINTS = 3
+TUNE_POINTS = 2
 TUNE_SEED = 42
 TUNE_ITER_EPOCHS = 3
 #: the iterative trial's seed; its one point samples embedding_size 256, so its epochs run B1's shared-memory route
@@ -418,6 +433,18 @@ TUNE_ITER_SEED = 7
 #: widths above this get B1 and G timed at the epoch's largest chunks
 TUNE_TIMED_ABOVE = 64
 PROFILE_USERS = 200
+
+# the mesh phase: two slots of the card
+#: relative Frobenius limit of the mesh-trained tables against the unsharded ones
+MESH_TABLE_TOL = 1e-5
+#: epochs of the mesh trainer timed after one more
+MESH_EPOCHS_TIMED = 3
+#: list lengths of the sharded retrieval
+MESH_RETR_K = (10, 64)
+#: the row blocks a slot the streaming kNN build is forced into
+MESH_KNN_MIN_BLOCKS = 4
+#: seconds the two processes of distributed_recommend may take
+MESH_CHILD_TIMEOUT_S = 300
 
 
 def log(*args):
@@ -854,17 +881,20 @@ def gram_bound(cols, mask, right, implicit: bool) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, reps: int = 10) -> dict:
+def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, reps: int = 10, kernel=None) -> dict:
     """Hold the gather-and-Gram kernel against its plain version (A's lower
     triangle and y) and a float64 sum, check two launches equal to the bit,
     and time in turns the kernel, its plain version (``index_select``, the
     weighted copy, two ``torch.bmm``) and the route it replaced (the row
-    gather kernel, the copy and the products), beside its bound."""
+    gather kernel, the copy and the products), beside its bound.  The
+    kernel is launched through ``kernel`` (default ``gather_gram``) where
+    the path launches it otherwise."""
     from lkpy_tpu_torch.ops.gather_gram import copy_width, gather_gram, gather_gram_plain
 
+    kernel = kernel or gather_gram
     kw = dict(otor=otor) if otor is not None else dict(reg=reg)
-    A, y = gather_gram(cols, values, mask, right, **kw)
-    A2, y2 = gather_gram(cols, values, mask, right, **kw)
+    A, y = kernel(cols, values, mask, right, **kw)
+    A2, y2 = kernel(cols, values, mask, right, **kw)
     torch.cuda.synchronize()
     Ap, yp = gather_gram_plain(cols, values, mask, right, **kw)
     k = right.shape[1]
@@ -900,7 +930,7 @@ def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, rep
     max_abs_err = max(float((low - low_p).abs().max()), float((y - yp).abs().max()))
     times: dict[str, list[float]] = {}
     fns = {
-        "kernel": lambda: gather_gram(cols, values, mask, right, **kw),
+        "kernel": lambda: kernel(cols, values, mask, right, **kw),
         "plain": lambda: gather_gram_plain(cols, values, mask, right, **kw),
         "unfused": lambda: unfused_normal_eqs(cols, values, mask, right, **kw),
     }
@@ -1358,7 +1388,7 @@ def training_phase(dev, users, items, rng: np.random.Generator) -> tuple[dict, d
     log(f"NDCG@10 on the held-out split with fold-in of the test users: {nd_fold:.4f} (from the user table {nd:.4f})")
     split = dict(
         scorer=scorer, ds=ds, tr_u=tr_u, tr_i=tr_i, test_u=test_u, test_i=test_i, rng=rng, ndcg=nd, ndcg_fold=nd_fold,
-        gather_epoch=gather_epoch, gram=gram,
+        gather_epoch=gather_epoch, gram=gram, epoch_ms=float(np.mean(steady)) * 1e3,
         chunks_per_epoch=sum(c.rows.shape[0] for c in trainer.u_buckets + trainer.i_buckets),
     )  # fmt: skip
     return launches, served, split
@@ -2044,6 +2074,7 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict, dict]:
             raise AssertionError(f"user {u}: per-query recommend {list(one.ids())} differs from the batch list {list(recs.lookup(u).ids())}")
     per_query = read_counts()
     split["pipeline_ndcg"] = nd
+    split["pipeline_scorer"] = scorer
     log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s); launches {per_query}")
     want = {"spd_solve": PER_QUERY_USERS, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": PER_QUERY_USERS, "gather_gram": PER_QUERY_USERS}
     if per_query != want:
@@ -2367,7 +2398,7 @@ def knn_build_phase(dev, split: dict) -> dict:
         f"{KNN_CPU_BASELINE_S / steady:.2f}x; launches {launches}"
     )
     out["implicit_check"] = knn_table_check("item-kNN table", table, normed, 1e-6, np.random.default_rng(7), dev)
-    del table
+    split["knn_table"] = table  # the mesh phase's builds are held against it
     zero_counts()
     normed, table = build("explicit item-kNN build", iu_e, ui_e, True)
     explicit_launches = read_counts()
@@ -2407,8 +2438,8 @@ def item_item_phase(dev, split: dict) -> dict:
     """The user's path through the item-item family, each scorer trained by
     ``Pipeline.train`` on bench.py's training split and served through the
     per-query runner of ``lkpy_tpu_torch.batch.recommend``: item kNN
-    (implicit, ``nbr_table_cap`` 512) for 1,000 test users with NDCG@10, user
-    kNN for 200, EASE over all 27,000 items for 200 (its inverse held to a
+    (implicit, ``nbr_table_cap`` 512) for 500 test users with NDCG@10, user
+    kNN for 100, EASE over all 27,000 items for 100 (its inverse held to a
     backward error), each with lists held against a float64 oracle over the
     port's own table or weights; then the explicit item kNN's predictions
     of 500 test users' held-out ratings against the bias model's and the
@@ -3583,32 +3614,35 @@ def spd_inputs_on_card(seed: int, B: int, k: int, dev):
     return A.contiguous(), torch.randn((B, k), generator=gen, device=dev)
 
 
-def solve_case(label: str, B: int, k: int, dev, seed: int, reps: int = 20) -> dict:
-    """B1 against its plain version and a float64 solve on SPD systems at a
-    training chunk's shape (the kernel phase's distribution, drawn on the
-    card, and tolerances), timed beside the plain version and ``cholesky`` +
-    ``cholesky_solve`` over ``reps`` launches."""
+def solve_case(label: str, B: int, k: int, dev, seed: int, reps: int = 20, kernel=None, plain=None) -> dict:
+    """A solve kernel (default B1, ``spd_solve_chunked``; B2 with
+    ``spd_solve``) against its plain version and a float64 solve on SPD
+    systems at a path's shape (the kernel phase's distribution, drawn on
+    the card, and tolerances), timed beside the plain version and
+    ``cholesky`` + ``cholesky_solve`` over ``reps`` launches."""
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked, spd_solve_chunked_plain
 
+    kernel, plain = kernel or spd_solve_chunked, plain or spd_solve_chunked_plain
+    name = kernel.__name__
     A, y = spd_inputs_on_card(seed, B, k, dev)
-    x = spd_solve_chunked(A, y)
+    x = kernel(A, y)
     # over 1,000 wide systems the plain version takes up to seconds a launch: its check's launch is its timing
     one = B > 1000 and k > 128
-    p, plain_ms = timed_once(lambda: spd_solve_chunked_plain(A, y)) if one else (spd_solve_chunked_plain(A, y), None)
+    p, plain_ms = timed_once(lambda: plain(A, y)) if one else (plain(A, y), None)
     torch.cuda.synchronize()
     abs_err = float((x - p).abs().max())
     rel_err = abs_err / float(p.abs().max())
     x64 = torch.linalg.solve(A.double(), y.double())
     err64 = float((x.double() - x64).abs().max() / x64.abs().max())
     if not (rel_err <= 1e-5 and err64 <= 1e-4):
-        raise AssertionError(f"spd_solve_chunked {label} ({B}, {k}): vs plain {rel_err}, vs float64 {err64}")
-    ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=reps, warm=min(2, reps))
+        raise AssertionError(f"{name} {label} ({B}, {k}): vs plain {rel_err}, vs float64 {err64}")
+    ms = cuda_ms(lambda: kernel(A, y), reps=reps, warm=min(2, reps))
     if not one:
-        plain_ms = cuda_ms(lambda: spd_solve_chunked_plain(A, y), reps=min(3, reps), warm=1)
+        plain_ms = cuda_ms(lambda: plain(A, y), reps=min(3, reps), warm=1)
     lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
     bound_ms, bound_by = spd_bound(B, k)
     log(
-        f"spd_solve_chunked {label} ({B}, {k}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cholesky+cholesky_solve {lib_ms:.4f} ms, "
+        f"{name} {label} ({B}, {k}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cholesky+cholesky_solve {lib_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by}); vs plain max abs {abs_err:.3e} rel {rel_err:.3e}, vs float64 {err64:.3e}"
     )
     return dict(label=label, shape=[B, k], max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
@@ -4337,6 +4371,539 @@ def tooling_paths(dev, split: dict, users, paths: dict, tmp, fresh_dir, fresh_po
 
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: the sharded paths on two slots of the card, and two processes
+@contextlib.contextmanager
+def slot_counts(module, name: str, slot_of):
+    """Wrap ``module.name`` for the block: the kernel launches counted
+    inside each call go to the slot that ``slot_of(*args)`` names.  Yields
+    ``{slot: {kernel: launches}}``."""
+    counts: dict = {}
+    inner = getattr(module, name)
+
+    def counting(*args, **kwargs):
+        before = read_counts()
+        out = inner(*args, **kwargs)
+        slot = counts.setdefault(slot_of(*args), dict.fromkeys(before, 0))
+        for kernel, n in read_counts().items():
+            slot[kernel] += n - before[kernel]
+        return out
+
+    setattr(module, name, counting)
+    try:
+        yield counts
+    finally:
+        setattr(module, name, inner)
+
+
+def mesh_training(dev, split: dict, mesh) -> tuple[dict, dict]:
+    """``ImplicitMFScorer.train`` with ``TrainingOptions(mesh=)`` from the
+    training phase's seed: the chunk shapes of the JAX rounding at the
+    mesh's d, B1 and G once a non-empty slab counted a slot, the tables
+    against the unsharded phase's, NDCG@10, the epoch beside the unsharded
+    one, and B1 and G at the largest slabs against their plain versions."""
+    from lkpy_tpu_torch.batch.device import device_recommend
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.ops import als as als_ops
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    ds, single = split["ds"], split["scorer"]
+    d = mesh.shape["data"]
+    scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, user_embeddings="prefer")
+    trainers = []
+    create = scorer.create_trainer
+
+    def keeping(data, options):
+        trainers.append(create(data, options))
+        return trainers[-1]
+
+    slot_of_storage: dict = {}
+
+    def slot_of(cols, *_):
+        if not slot_of_storage:
+            for ch in trainers[0].u_buckets + trainers[0].i_buckets:
+                for s, slab in enumerate(ch.slabs):
+                    slot_of_storage[slab.cols.untyped_storage().data_ptr()] = s
+        return slot_of_storage[cols.untyped_storage().data_ptr()]
+
+    scorer.create_trainer = keeping
+    zero_counts()
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    with slot_counts(als_ops, "_solve_chunk", slot_of) as by_slot:
+        scorer.train(ds, TrainingOptions(rng=42, mesh=mesh))
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - tw
+    launches = read_counts()
+    del scorer.create_trainer
+    trainer = trainers[0]
+    chunks = trainer.u_buckets + trainer.i_buckets
+    for ch in chunks:
+        Bn, P = ch.slabs[0].n_real, ch.shape[2]
+        C = max(-(-Bn // max(als_ops._CHUNK_ENTRIES // P, 8 * d)), 1)
+        want = (C, -(-Bn // (C * 8 * d)) * 8 * d, P)
+        if ch.shape != want or len(ch.slabs) != d:
+            raise AssertionError(f"a chunk of {Bn} rows of width {P}: {ch.shape} in {len(ch.slabs)} slabs, the JAX rounding at d={d} gives {want}")
+    log(f"mesh training: chunks at d={d}: users {[c.shape for c in trainer.u_buckets]}, items {[c.shape for c in trainer.i_buckets]}")
+    per_slot = {s: EPOCHS * sum(1 for ch in chunks for c in range(ch.shape[0]) if ch.slabs[s].real_rows(c) > 0) for s in range(d)}
+    log(f"mesh training: ImplicitMFScorer.train on {mesh}, {train_s:.3f}s with set-up; launches {launches}; by slot {by_slot}")
+    for s in range(d):
+        got = by_slot.get(s, {})
+        if got.get("spd_solve_chunked") != per_slot[s] or got.get("gather_gram") != per_slot[s]:
+            raise AssertionError(f"slot {s} must launch B1 and G once a non-empty slab ({per_slot[s]}): {got}")
+    if launches["spd_solve_chunked"] != sum(per_slot.values()) or launches["gather_gram"] != sum(per_slot.values()) or launches["spd_solve"] or launches["gather_rows"] or launches["mips_topk"]:
+        raise AssertionError(f"the mesh training path must launch B1 and G once a non-empty slab, nothing else: {launches}")
+    errs = {}
+    for name in ("user_embeddings", "item_embeddings"):
+        t = getattr(scorer, name)
+        if t.device.type != dev.type or not torch.isfinite(t).all():
+            raise AssertionError(f"the mesh-trained {name} must be finite and on {dev}")
+        errs[name] = rel_frobenius(t, getattr(single, name))
+    log(f"mesh training vs the unsharded training phase, relative Frobenius: {errs}")
+    if max(errs.values()) > MESH_TABLE_TOL:
+        raise AssertionError(f"the mesh-trained tables differ from the unsharded ones by {errs} (limit {MESH_TABLE_TOL})")
+    users = np.unique(split["test_u"])
+    recs = device_recommend(scorer, users, 10, ds.interaction_matrix(), mesh=mesh)
+    nd = ndcg10(users, [list(recs.lookup(u).ids()) for u in users], split["test_u"], split["test_i"])
+    log(f"mesh training: NDCG@10 {nd:.4f} (unsharded {split['ndcg']:.4f}), served from the user table over the mesh")
+    if not nd >= NDCG_MIN:
+        raise AssertionError(f"NDCG@10 {nd} of the mesh-trained tables below {NDCG_MIN}")
+    times = []
+    for _ in range(MESH_EPOCHS_TIMED + 1):
+        ts = time.perf_counter()
+        float(trainer.train_epoch())
+        times.append(time.perf_counter() - ts)
+    epoch_ms = float(np.mean(times[1:])) * 1e3
+    log(f"mesh epoch (readback each): {epoch_ms:.3f} ms, mean of {MESH_EPOCHS_TIMED} after one; unsharded {split['epoch_ms']:.3f} ms")
+    # the slabs' own shapes against the plain versions: the largest for B1, G's largest user and widest item slabs
+    slabs = [s for ch in chunks for s in ch.slabs]
+    rows = max(s.rows.shape[1] for s in slabs)
+    cases = [solve_case("mesh slab", rows, FEATURES, dev, seed=37, reps=5)]
+    u_slab = max((s for ch in trainer.u_buckets for s in ch.slabs), key=lambda s: s.cols.shape[1] * s.cols.shape[2])
+    i_slab = max((s for ch in trainer.i_buckets for s in ch.slabs), key=lambda s: s.cols.shape[2])
+    grams = []
+    for side, slab, right, reg in (("user slab", u_slab, trainer.i_factors, trainer.config.user_reg), ("widest item slab", i_slab, trainer.u_factors, trainer.config.item_reg)):
+        otor = als_ops.implicit_otor(right, reg)
+        grams.append(gram_case(
+            f"mesh {side} {tuple(slab.cols.shape[1:])}, planned for {slab.plan_rows} rows", slab.cols[0], slab.values[0], slab.mask[0], right,
+            otor=otor, reps=5, kernel=lambda *a, otor, rows=slab.plan_rows: als_ops._normal_equations(*a, otor, None, "implicit", rows),
+        ))  # fmt: skip
+    info = dict(train_s=train_s, by_slot=by_slot, shapes=[c.shape for c in chunks], table_err=errs, ndcg=nd, epoch_ms=epoch_ms,
+                unsharded_epoch_ms=split["epoch_ms"], solves=cases, grams=grams)  # fmt: skip
+    return launches, info
+
+
+def mesh_serving(dev, split: dict, mesh) -> tuple[dict, dict]:
+    """``device_recommend(mesh=)`` of 16,384 users with fold-in against the
+    unsharded call: the same lists at clear gaps, recall against float64,
+    B2 and G once a slab counted a slot, both at the slab's shape against
+    their plain versions."""
+    from lkpy_tpu_torch.batch import serving
+    from lkpy_tpu_torch.batch.device import device_recommend
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
+
+    scorer, ds = split["scorer"], split["ds"]
+    matrix = ds.interaction_matrix()
+    csr = matrix.csr(None)
+    fold = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, user_embeddings=True)
+    fold.load_parameters(scorer.get_parameters())
+    fold._OtOr, fold.users, fold.items = scorer._OtOr, scorer.users, scorer.items
+    serve = np.random.default_rng(4).choice(ds.users.ids, size=SERVE_USERS, replace=False)
+    ts = time.perf_counter()
+    single = device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, device=dev)
+    single_s = time.perf_counter() - ts
+    d = mesh.shape["data"]
+    block = max(SERVE_CHUNK, d) // d * d
+    slab = block // d
+    blocks = -(-SERVE_USERS // block)
+    zero_counts()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with slot_counts(serving, "_serve_block", lambda users, *_: users.storage_offset() % block // slab) as by_slot:
+        recs, kept = recording_grams(lambda: device_recommend(fold, serve, SERVE_N, matrix, chunk=SERVE_CHUNK, mesh=mesh))
+    mesh_s = time.perf_counter() - ts
+    launches = read_counts()
+    log(f"mesh serving: {SERVE_USERS} users with fold-in over {mesh}, {mesh_s:.3f}s (unsharded {single_s:.3f}s); launches {launches}; by slot {by_slot}")
+    for s in range(d):
+        got = by_slot.get(s, {})
+        if got.get("spd_solve") != blocks or got.get("gather_gram") != blocks:
+            raise AssertionError(f"slot {s} must launch B2 and G once a slab ({blocks}): {got}")
+    if launches["spd_solve"] != d * blocks or launches["gather_gram"] != d * blocks or launches["spd_solve_chunked"] or launches["gather_rows"] or launches["mips_topk"]:
+        raise AssertionError(f"the mesh serving path must launch B2 and G once a slab, nothing else: {launches}")
+    check_lists(recs, csr, ds.users, SERVE_N)
+    differ = [u for u in serve if not same_ids_at_clear_gaps(recs.lookup(u), single.lookup(u))]
+    if differ:
+        raise AssertionError(f"{len(differ)} mesh lists differ from the unsharded ones at clear gaps, e.g. user {differ[0]}")
+    Y = scorer.item_embeddings.double().cpu().numpy()
+    otor = scorer._OtOr.double().cpu().numpy()
+    hits = 0
+    for uid in serve[:256]:
+        top, _ = oracle_topn(csr.row_cols(ds.users.number(uid)), Y, otor, scorer.config.weight, SERVE_N)
+        hits += len(np.intersect1d(recs.lookup(uid).numbers(), top))
+    recall = hits / (256 * SERVE_N)
+    log(f"mesh serving: every list equals the unsharded one at clear gaps; recall@{SERVE_N} against float64 (256 users) {recall:.5f}")
+    if recall < 0.99:
+        raise AssertionError(f"mesh serving recall@{SERVE_N} {recall} below 0.99")
+    gram = gram_case(f"mesh serving slab k={FEATURES}", *kept[:4], **kept[4], reps=5)
+    fold_solve = solve_case("mesh serving slab", slab, FEATURES, dev, 38, reps=10, kernel=spd_solve, plain=spd_solve_plain)
+    info = dict(by_slot=by_slot, mesh_s=mesh_s, unsharded_s=single_s, recall=recall, gram=gram, solve=fold_solve)
+    return launches, info
+
+
+def mesh_retrieval(dev, split: dict, mesh) -> tuple[dict, dict]:
+    """``sharded_matmul_topk`` of 4,096 trained user rows against the
+    trained item table tiled to 500,000 rows, row-sharded over the mesh's
+    ``model`` slots: B3 once a shard counted a slot, every returned item
+    against the float64 k-th score, timed beside ``retrieval_topk``; then B3
+    at each shard's shape against its plain version and float64."""
+    from lkpy_tpu_torch.ops.mips_topk import PRODUCT_TF32X3, mips_topk, mips_topk_plain
+    from lkpy_tpu_torch.ops.topk import fused_route, retrieval_topk
+    from lkpy_tpu_torch.parallel import ops as par_ops
+
+    scorer = split["scorer"]
+    rng = np.random.default_rng(5)
+    i_np = scorer.item_embeddings.cpu().numpy()
+    jitter = rng.normal(0, 0.02 * np.abs(i_np).mean(), size=(RETR_ITEMS, i_np.shape[1])).astype(np.float32)
+    items = torch.from_numpy(np.tile(i_np, (-(-RETR_ITEMS // len(i_np)), 1))[:RETR_ITEMS] + jitter).to(dev)
+    pick = np.sort(rng.choice(scorer.user_embeddings.shape[0], size=RETR_QUERIES, replace=False))
+    q = scorer.user_embeddings[torch.from_numpy(pick).to(dev)].contiguous()
+    placed = par_ops.shard_rows(items, mesh)
+    m = mesh.shape["model"]
+    if not all(fused_route(p.device.type, RETR_QUERIES, p.shape[0], k) for p in placed.parts for k in MESH_RETR_K):
+        raise AssertionError(f"every shard of {RETR_ITEMS} rows over {m} slots must take the fused route")
+
+    def slot_of(queries, part, *_):
+        return next(s for s, p in enumerate(placed.parts) if p.data_ptr() == part.data_ptr())
+
+    zero_counts()
+    torch.cuda.synchronize()
+    with slot_counts(par_ops, "retrieval_topk", slot_of) as by_slot:
+        results = {k: par_ops.sharded_matmul_topk(q, placed, k, mesh) for k in MESH_RETR_K}
+        torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"mesh retrieval: {RETR_QUERIES} x {RETR_ITEMS} over {m} model slots, k={MESH_RETR_K}; launches {launches}; by slot {by_slot}")
+    for s in range(m):
+        if by_slot.get(s, {}).get("mips_topk") != len(MESH_RETR_K):
+            raise AssertionError(f"slot {s} must launch B3 once a call: {by_slot}")
+    if launches["mips_topk"] != m * len(MESH_RETR_K) or launches["spd_solve"] or launches["spd_solve_chunked"] or launches["gather_gram"] or launches["gather_rows"]:
+        raise AssertionError(f"the mesh retrieval path must launch B3 once a shard, nothing else: {launches}")
+    rows = min(TOPK_F64_ROWS, RETR_QUERIES)
+    s64 = q[:rows].double() @ items.double().T
+    errs = {}
+    for k, (v, ix) in results.items():
+        if v.shape != (RETR_QUERIES, k) or ix.dtype != torch.int32 or not (v[:, :-1] >= v[:, 1:]).all():
+            raise AssertionError(f"mesh retrieval k={k}: bad result {tuple(v.shape)} {ix.dtype}")
+        tv = torch.topk(s64, k, dim=1).values
+        got64 = s64.gather(1, ix[:rows].long())
+        errs[k] = float((v[:rows].double() - got64).abs().max() / tv.abs().max())
+        if (got64 < tv[:, -1:] - 1e-5).any() or errs[k] > 1e-5:
+            raise AssertionError(f"mesh retrieval k={k}: float64 check failed (score error {errs[k]})")
+    del s64
+    # B3 at the shard's own shape, outside the path's counts: each shard's retrieval_topk against the plain
+    # version (rtol/atol 1e-5, indices at clear gaps) and float64, timed beside the plain version and torch.topk
+    shapes = []
+    for k in MESH_RETR_K:
+        for s, part in enumerate(placed.parts):
+            label = f"mesh retrieval shard {s} ({RETR_QUERIES}, {part.shape[0]}, {part.shape[1]}) k={k}"
+            before = mips_topk.launches
+            got = retrieval_topk(q, part, k)
+            torch.cuda.synchronize()
+            if mips_topk.launches - before != 1:
+                raise AssertionError(f"{label}: retrieval_topk must launch B3 once at the shard's shape")
+            product = mips_topk.last_product
+            max_abs = check_topk(label, q, part, k, None, None, got)
+            del got
+            if s:
+                continue  # the shards are of one shape: the first is timed
+            ms = cuda_ms(lambda: retrieval_topk(q, part, k), reps=20)
+            prow = min(RETR_QUERIES, TOPK_PLAIN_TIMED_ROWS)
+            plain_ms = cuda_ms(lambda: mips_topk_plain(q[:prow], part, k), reps=1, warm=0)
+            lib_ms = cuda_ms(lambda: torch.topk(q @ part.T, k, dim=1), reps=3, warm=1)
+            bound_ms, bound_by = topk_bound(RETR_QUERIES, part.shape[0], part.shape[1], k, False, False, product == PRODUCT_TF32X3)
+            log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {prow} rows, torch.topk(q @ I.T) {lib_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x)")  # fmt: skip
+            shapes.append(dict(label=label, shape=[RETR_QUERIES, part.shape[0], part.shape[1], k], max_abs_err=max_abs, ms=ms,
+                               plain_ms=plain_ms, plain_rows=prow, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))  # fmt: skip
+    times = {}
+    for name, fn in (("sharded", lambda: par_ops.sharded_matmul_topk(q, placed, 10, mesh)), ("single", lambda: retrieval_topk(q, items, 10))):
+        fn()[1].cpu()
+        ts = time.perf_counter()
+        for _ in range(4):
+            fn()[1].cpu()
+        times[name] = (time.perf_counter() - ts) / 4 * 1e3
+    log(f"mesh retrieval vs float64 ({rows} queries): relative score errors {errs}; ms a call with readback, k=10: {times}")
+    return launches, dict(by_slot=by_slot, f64_err=errs, ms=times, shapes=shapes)
+
+
+def same_table(label: str, got, want, normed, tol: float = KNN_SIM_TOL) -> dict:
+    """A mesh-built neighbour table against the unsharded one: sims within
+    ``tol`` and neighbour ids equal at clear gaps (more than ``tol`` from
+    the neighbouring ranks' sims, the last rank excepted: ``torch.topk``
+    orders ties arbitrarily).  A row whose sims differ by more must be no
+    farther from the float64 cosines than the unsharded row, and every
+    neighbour there no lower than the float64 k-th less ``tol``: at the most
+    popular items the float32 Gram of both builds is off by up to 2e-5 (its
+    sums run in another order when a slot's block of S has other rows)."""
+    import scipy.sparse as sps
+
+    gs, gi = got.sims.cpu().numpy(), got.indices.cpu().numpy()
+    ws, wi = want.sims.cpu().numpy(), want.indices.cpu().numpy()
+    if gs.shape != ws.shape:
+        raise AssertionError(f"{label}: shape {gs.shape}, the unsharded table's {ws.shape}")
+    diff = np.abs(gs - ws).max(axis=1)
+    far = np.flatnonzero(diff > tol)
+    gap = np.abs(np.diff(ws, axis=1)) > tol
+    clear = (ws > tol) & np.pad(gap, ((0, 0), (1, 0)), constant_values=True) & np.pad(gap, ((0, 0), (0, 1)), constant_values=True)
+    clear[:, -1] = False  # the cut-off may fall inside a near tie
+    clear[far] = False
+    if (gi[clear] != wi[clear]).any():
+        raise AssertionError(f"{label}: {(gi[clear] != wi[clear]).sum()} neighbour ids differ at clear gaps")
+    out = dict(max_abs_err=float(diff.max()), rows_over_tol=len(far))
+    if len(far):
+        A = sps.csr_array((normed.values.astype(np.float64), normed.colind, normed.rowptr), shape=normed.shape)
+        S = (A[far] @ A.T).toarray()
+        S[np.arange(len(far)), far] = -np.inf
+        kth = np.maximum(-np.partition(-S, gs.shape[1] - 1, axis=1)[:, gs.shape[1] - 1], 0.0)
+        g64, w64 = np.take_along_axis(S, gi[far], axis=1), np.take_along_axis(S, wi[far], axis=1)
+        real_g, real_w = gs[far] > 0, ws[far] > 0
+        g_err = np.where(real_g, np.abs(gs[far] - g64), 0.0).max(axis=1)
+        w_err = np.where(real_w, np.abs(ws[far] - w64), 0.0).max(axis=1)
+        low = (real_g & (g64 < kth[:, None] - tol)).any()
+        out.update(f64_err=float(g_err.max()), unsharded_f64_err=float(w_err.max()))
+        if (g_err > np.maximum(w_err, tol)).any() or low:
+            raise AssertionError(f"{label}: rows {far.tolist()} differ from the unsharded table by up to {diff.max()} and are not closer to float64 ({out})")
+    return out
+
+
+def mesh_knn(dev, split: dict, mesh) -> tuple[dict, dict]:
+    """The item-kNN build over the mesh's ``model`` slots at 27,000 items:
+    dense, streaming in at least ``MESH_KNN_MIN_BLOCKS`` row blocks a slot,
+    and ``ItemKNNScorer.train`` with ``TrainingOptions(mesh=)``; each table
+    against the ``knn_build_phase``'s, peak device memory logged."""
+    from lkpy_tpu_torch.models.knn import ItemKNNScorer
+    from lkpy_tpu_torch.ops.knn import normalize_item_matrix
+    from lkpy_tpu_torch.parallel.knn import sharded_similarity_topk
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    want = split["knn_table"]
+    iu = split["ds"].interaction_matrix().csr(None).transpose()
+    normed, _ = normalize_item_matrix(iu.with_values(np.ones(iu.nnz, dtype=np.float32)), explicit=False)
+    m = mesh.shape["model"]
+    rows = -(-N_ITEMS // m)
+    dense_bytes = rows * rows * m * 4
+    stream_bytes = -(-rows // MESH_KNN_MIN_BLOCKS) * rows * m * 4
+    if -(-rows // (stream_bytes // (rows * m * 4))) < MESH_KNN_MIN_BLOCKS:
+        raise AssertionError("the streaming budget must force the row blocks it is for")
+    out = {}
+    zero_counts()
+    scorer = ItemKNNScorer(feedback="implicit", save_nbrs=KNN_K)
+
+    def trained():
+        scorer.train(split["ds"], TrainingOptions(mesh=mesh))
+        return scorer.sim_table
+
+    for label, fn in (
+        ("dense", lambda: sharded_similarity_topk(normed, KNN_K, mesh=mesh, sim_block_bytes=dense_bytes)),
+        (f"streaming ({MESH_KNN_MIN_BLOCKS} row blocks a slot)", lambda: sharded_similarity_topk(normed, KNN_K, mesh=mesh, sim_block_bytes=stream_bytes)),
+        ("ItemKNNScorer.train", trained),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        table = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - ts
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = same_table(f"mesh kNN {label}", table, want, normed)
+        f64 = knn_table_check(f"mesh kNN {label}", table, normed, 1e-6, np.random.default_rng(7), dev)
+        out[label] = dict(s=secs, peak_gib=peak, max_abs_err=same["max_abs_err"], unsharded=same, f64=f64)
+        log(f"mesh kNN {label} over {m} model slots: {secs:.3f}s, peak device memory {peak:.3f} GiB; against the unsharded table {same}")
+        del table
+    launches = read_counts()
+    dense_peak, stream_peak = out["dense"]["peak_gib"], out[f"streaming ({MESH_KNN_MIN_BLOCKS} row blocks a slot)"]["peak_gib"]
+    if not stream_peak < dense_peak:
+        raise AssertionError(f"the streaming build's peak ({stream_peak} GiB) must stay under the dense build's ({dense_peak} GiB)")
+    if any(launches.values()):
+        raise AssertionError(f"the mesh kNN builds launched a kernel: {launches}")
+    return launches, out
+
+
+def mesh_children(dev, split: dict, tmp) -> list:
+    """Start the two processes of ``distributed_recommend`` on the card
+    (``--mesh-child``) with the pipeline phase's tables and training set
+    saved for them, and the log relay configured."""
+    import os
+    import socket
+
+    from lkpy_tpu_torch import state
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    split["ds"].save(tmp / "data")
+    state.save_parameters(split["pipeline_scorer"], tmp / "params.npz")
+    np.save(tmp / "users.npy", np.unique(split["test_u"]))
+    env = dict(os.environ, LKT_LOG_RELAY=f"tcp://127.0.0.1:{free_port()}", LKT_LOG_RELAY_KEY=os.urandom(16).hex())
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        with open(tmp / f"child{rank}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--mesh-child", str(rank), "2", str(port), str(tmp)], env=env, stdout=f, stderr=subprocess.STDOUT,
+            ))  # fmt: skip
+    return procs
+
+
+def mesh_children_check(dev, split: dict, tmp, procs: list) -> dict:
+    """Wait for the two processes and hold rank 0's merged lists against the
+    single-process ``device_recommend`` of the same tables."""
+    from lkpy_tpu_torch.batch.device import device_recommend
+
+    for rank, p in enumerate(procs):
+        try:
+            p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"mesh child {rank} did not end within {MESH_CHILD_TIMEOUT_S}s") from None
+    for rank, p in enumerate(procs):
+        tail = (tmp / f"child{rank}.log").read_text()[-3000:]
+        log(f"mesh child {rank} (exit {p.returncode}):\n{tail.strip()}")
+        if p.returncode != 0:
+            raise AssertionError(f"mesh child {rank} failed")
+    result = json.loads((tmp / "result.json").read_text())
+    children = [json.loads((tmp / f"child{rank}.json").read_text()) for rank in range(2)]
+    if any(c["imported"] for c in children):
+        raise AssertionError(f"a mesh child imported {[c['imported'] for c in children]}")
+    if not any("rank 1 of 2" in m and m.startswith("[worker ") for m in result["relayed"]):
+        raise AssertionError(f"the log relay carried no record from rank 1 to rank 0: {result['relayed']}")
+    users = np.load(tmp / "users.npy")
+    want = device_recommend(split["pipeline_scorer"], users, 10, split["ds"].interaction_matrix(), device=dev)
+    lists = result["lists"]
+    if len(lists) != len(users):
+        raise AssertionError(f"rank 0 merged {len(lists)} lists for {len(users)} users")
+    differ = 0
+    for u in users:
+        w = want.lookup(u)
+        s = w.scores()
+        gap = np.abs(np.diff(s)) > 1e-4
+        clear = np.ones(len(s), bool)
+        clear[:-1] &= gap
+        clear[1:] &= gap
+        clear[-1] = False
+        got = np.asarray(lists[str(u)])
+        differ += int(len(got) != len(s) or (got[clear] != np.asarray(w.ids())[clear]).any())
+    log(f"two processes: rank 0's merged lists of {len(users)} users equal the single-process ones at clear gaps but {differ}; "
+        f"relayed {result['relayed']}; children's seconds {[c['seconds'] for c in children]}")  # fmt: skip
+    if differ:
+        raise AssertionError(f"{differ} merged lists differ from the single-process device_recommend")
+    return dict(users=len(users), relayed=result["relayed"], children=children)
+
+
+def mesh_child(args: list) -> int:
+    """One of the two processes of the mesh phase: join the gloo group
+    (rank 1 forwards a log record through the relay), load the pipeline
+    phase's tables through ``state.load_parameters`` and its training set,
+    and ``distributed_recommend`` the test users; rank 0 writes the merged
+    lists and what the relay carried."""
+    import logging
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    rank, world, port, tmp = int(args[0]), int(args[1]), int(args[2]), Path(args[3])
+    from lkpy_tpu_torch import state
+    from lkpy_tpu_torch.batch.distributed import distributed_recommend, local_query_shard
+    from lkpy_tpu_torch.data import Dataset
+    from lkpy_tpu_torch.models.als import ImplicitMFScorer
+    from lkpy_tpu_torch.ops.als import implicit_otor
+    from lkpy_tpu_torch.parallel import init_distributed
+
+    if not init_distributed(f"127.0.0.1:{port}", world, rank):
+        raise AssertionError("the gloo group did not start")
+    relayed: list = []
+    checker = logging.getLogger("lkpy_tpu_torch.mesh_check")
+    if rank == 0:
+
+        class Collect(logging.Handler):
+            def emit(self, record):
+                relayed.append(record.getMessage())
+
+        checker.addHandler(Collect())
+        checker.setLevel(logging.INFO)
+    ds = Dataset.load(tmp / "data")
+    scorer = ImplicitMFScorer(features=FEATURES, epochs=EPOCHS, weight=40.0, regularization=0.1, user_embeddings=True)
+    state.load_parameters(scorer, tmp / "params.npz")
+    scorer.users, scorer.items = ds.users, ds.items
+    scorer._OtOr = implicit_otor(scorer.item_embeddings, scorer.config.user_reg)
+    users = np.load(tmp / "users.npy")
+    if rank != 0:
+        checker.warning("rank %d of %d serves %d users on %s", rank, world, len(local_query_shard(users)), torch.cuda.get_device_name(0))
+    ts = time.perf_counter()
+    merged = distributed_recommend(scorer, users, 10, ds.interaction_matrix())
+    serve_s = time.perf_counter() - ts
+    if rank == 0:
+        if merged is None:
+            raise AssertionError("rank 0 must hold the merged lists")
+        deadline = time.monotonic() + 30
+        while not relayed and time.monotonic() < deadline:
+            time.sleep(0.05)
+        lists = {str(key[0]): [int(i) for i in il.ids()] for key, il in merged.items()}
+        (tmp / "result.json").write_text(json.dumps({"lists": lists, "relayed": relayed}))
+    elif merged is not None:
+        raise AssertionError(f"rank {rank} must return None")
+    imported = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lkpy_tpu", "zmq"))
+    (tmp / f"child{rank}.json").write_text(json.dumps({"imported": imported, "seconds": time.perf_counter() - t0, "serve_s": serve_s}))
+    print(f"mesh child {rank}: {len(users)} users, distributed_recommend {serve_s:.3f}s, {time.perf_counter() - t0:.1f}s in all", flush=True)
+    return 0
+
+
+def slot_launches(split: dict, path: str, kernel: str) -> dict:
+    """A kernel's launches a slot on one of the mesh phase's paths."""
+    return {f"slot {s}": c[kernel] for s, c in sorted(split["mesh"][path]["by_slot"].items())}
+
+
+def mesh_phase(dev, split: dict) -> dict:
+    """The sharded paths at full width on two slots of the card (a
+    ``data = 2`` mesh for ALS training and serving, ``model = 2`` for
+    retrieval and the kNN build), two processes of ``distributed_recommend``
+    over gloo started first and checked last, and ``dryrun_multichip(8)``.
+    Returns the launches of each path; ``split["mesh"]`` keeps the rest."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from lkpy_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lkpy_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    tmp = Path(tempfile.mkdtemp(prefix="lkpy-tpu-torch-mesh-"))
+    procs = []
+    try:
+        procs = mesh_children(dev, split, tmp)
+        data2 = make_mesh(MeshSpec(data=2, model=1), devices=[dev, dev])
+        model2 = make_mesh(MeshSpec(data=1, model=2), devices=[dev, dev])
+        paths, info = {}, {}
+        paths["mesh_training"], info["training"] = mesh_training(dev, split, data2)
+        paths["mesh_serving"], info["serving"] = mesh_serving(dev, split, data2)
+        paths["mesh_retrieval"], info["retrieval"] = mesh_retrieval(dev, split, model2)
+        paths["mesh_knn"], info["knn"] = mesh_knn(dev, split, model2)
+        zero_counts()
+        ts = time.perf_counter()
+        info["dryrun"] = dryrun_multichip(8, device=dev.type)
+        paths["mesh_dryrun"] = read_counts()
+        log(f"dryrun_multichip(8) on the card: {time.perf_counter() - ts:.1f}s; launches {paths['mesh_dryrun']}")
+        info["processes"] = mesh_children_check(dev, split, tmp, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    split["mesh"] = info
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4449,6 +5016,7 @@ def main() -> int:
     item_item = phase("item_item", item_item_phase, dev, split)
     gradient = phase("gradient", gradient_phase, dev, split)
     zoo = phase("zoo", zoo_phase, dev, split)
+    mesh = phase("mesh", mesh_phase, dev, split)
 
     paths = {
         "serving": serving,
@@ -4469,6 +5037,7 @@ def main() -> int:
         **item_item,
         **gradient,
         **zoo,
+        **mesh,
     }
     for path, kernel in [
         ("retrieval", "mips_topk"), ("explicit_training", "spd_solve_chunked"), ("explicit_training", "gather_gram"),
@@ -4490,6 +5059,8 @@ def main() -> int:
         ("tuning_iterative", "spd_solve_chunked"), ("tuning_iterative", "gather_gram"), ("tuning_iterative", "spd_solve"),
         ("tuning_iterative", "gather_rows"), ("profile", "gather_gram"), ("profile", "spd_solve"), ("profile", "gather_rows"),
         ("serving_k256", "spd_solve"), ("serving_k256", "gather_gram"),
+        ("mesh_training", "spd_solve_chunked"), ("mesh_training", "gather_gram"), ("mesh_serving", "spd_solve"),
+        ("mesh_serving", "gather_gram"), ("mesh_retrieval", "mips_topk"),
     ]:  # fmt: skip
         if paths[path][kernel] == 0:
             raise AssertionError(f"the {path} path launched no {kernel} kernel")
@@ -4501,6 +5072,8 @@ def main() -> int:
             replaces="lkpy_tpu/ops/pallas_solve.py:42",
             launches=serving["spd_solve"],
             launches_by_path={p: c["spd_solve"] for p, c in paths.items()},
+            launches_by_slot={"mesh_serving": slot_launches(split, "serving", "spd_solve")},
+            mesh_shape=split["mesh"]["serving"]["solve"],
             **spd,
         ),
         dict(
@@ -4510,6 +5083,8 @@ def main() -> int:
             replaces="lkpy_tpu/ops/pallas_gj.py:43",
             launches=training["spd_solve_chunked"],
             launches_by_path={p: c["spd_solve_chunked"] for p, c in paths.items()},
+            launches_by_slot={"mesh_training": slot_launches(split, "training", "spd_solve_chunked")},
+            mesh_shapes=split["mesh"]["training"]["solves"],
             **chunked,
             ladder_shapes=split["data_config"]["solves"],
             tuner_shapes=split["tooling"]["solves"],
@@ -4522,6 +5097,8 @@ def main() -> int:
             replaces="lkpy_tpu/ops/pallas_topk.py:62",
             launches=retrieval["mips_topk"],
             launches_by_path={p: c["mips_topk"] for p, c in paths.items()},
+            launches_by_slot={"mesh_retrieval": slot_launches(split, "retrieval", "mips_topk")},
+            mesh_shapes=split["mesh"]["retrieval"]["shapes"],
             **topk,
         ),
         dict(
@@ -4549,6 +5126,8 @@ def main() -> int:
             replaces="benchmarks/probe_gather.py:113",
             launches=pipeline_training["gather_gram"] + pipeline_serving["gather_gram"],
             launches_by_path={p: c["gather_gram"] for p, c in paths.items()},
+            launches_by_slot={m: slot_launches(split, m.removeprefix("mesh_"), "gather_gram") for m in ("mesh_training", "mesh_serving")},
+            mesh_shapes=split["mesh"]["training"]["grams"] + [split["mesh"]["serving"]["gram"]],
             # the main row: the implicit epoch's largest chunk, the user half's (30024, 120) against the item table
             **{k: v for k, v in split["gram"][0].items() if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             shape=split["gram"][0]["label"],
@@ -4574,4 +5153,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_child(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-child"] else main())

@@ -8,8 +8,10 @@ Generic pipelines run per query on the host.  A standard top-N pipeline
 over an embedding-family scorer takes the device route
 (:func:`lkpy_tpu_torch.batch.device.try_device_recommend`): the whole batch
 of users is served at once, with fold-in, on the device where the scorer's
-tables lie.  Multi-device serving (the JAX package's ``mesh`` and
-``distributed``) is not ported yet.
+tables lie, or with ``mesh=`` over the ``data`` slots of a
+:class:`~lkpy_tpu_torch.parallel.mesh.Mesh`; ``distributed=True`` also
+splits the users over the processes of a ``torch.distributed`` group and
+gathers the lists on process 0 (:mod:`lkpy_tpu_torch.batch.distributed`).
 """
 
 from lkpy_tpu_torch.batch.results import BatchResults
@@ -18,7 +20,7 @@ from lkpy_tpu_torch.batch.runner import BatchPipelineRunner, InvocationSpec
 __all__ = ["BatchPipelineRunner", "BatchResults", "InvocationSpec", "predict", "recommend", "score"]
 
 
-def recommend(pipeline, users, n=None, *, queries=None, n_jobs=None, device=True, **kwargs):
+def recommend(pipeline, users, n=None, *, queries=None, n_jobs=None, device=True, mesh=None, distributed=False, **kwargs):
     """Batch-recommend for a set of users (reference: batch/__init__.py).
 
     With ``device=True`` (the default), a standard top-N pipeline over an
@@ -26,15 +28,27 @@ def recommend(pipeline, users, n=None, *, queries=None, n_jobs=None, device=True
     where the scorer's tables lie, which is where ``Pipeline.train`` put
     them (the card unless ``TrainingOptions(device="cpu")``); other
     pipelines, and ``device=False``, run per query.  ``device`` is the JAX
-    package's switch of route, not a torch device."""
+    package's switch of route, not a torch device.  ``mesh`` splits each
+    block of users over the mesh's ``data`` slots; ``distributed=True``
+    additionally splits the users across processes and gathers the lists
+    on process 0, None elsewhere (:mod:`lkpy_tpu_torch.batch.distributed`,
+    the reference's Ray fan-out analog)."""
     from lkpy_tpu_torch.data import ItemListCollection
 
     if device and queries is None and not isinstance(users, ItemListCollection):
         flat = _flatten_user_ids(users)
         if flat is not None:
+            if distributed:
+                from lkpy_tpu_torch.batch.device import supports_device_batch
+                from lkpy_tpu_torch.batch.distributed import distributed_recommend
+
+                scorer = pipeline.node("scorer").component
+                lookup = pipeline.node("history-lookup").component
+                if supports_device_batch(scorer) and lookup.interactions is not None:
+                    return distributed_recommend(scorer, flat, n if n is not None else 10, lookup.interactions, mesh=mesh)
             from lkpy_tpu_torch.batch.device import try_device_recommend
 
-            fast = try_device_recommend(pipeline, flat, n, exact=kwargs.get("exact"))
+            fast = try_device_recommend(pipeline, flat, n, mesh=mesh, exact=kwargs.get("exact"))
             if fast is not None:
                 return fast
     runner = BatchPipelineRunner(n_jobs=n_jobs)

@@ -6,7 +6,9 @@ for a whole batch of users at once through the engine in
 :mod:`lkpy_tpu_torch.batch.serving` — fold-in (or the trained user table),
 one matrix product against the item table, history masking from the device
 CSR, and a top-n — and the results come back as an
-:class:`~lkpy_tpu_torch.data.ArrayTopNILC`.
+:class:`~lkpy_tpu_torch.data.ArrayTopNILC`.  With ``mesh=`` each block's
+users split over the mesh's ``data`` slots (the TPU package's batch
+sharding, the reference's Ray query fan-out, batch/_ray.py).
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ def _extract_arrays(scorer) -> dict | None:
     return None
 
 
-def try_device_recommend(pipeline, users, n: int | None, *, exact=None) -> ItemListCollection | None:
+def try_device_recommend(pipeline, users, n: int | None, *, mesh=None, exact=None) -> ItemListCollection | None:
     """
     Serve a *standard* top-N pipeline through :func:`device_recommend`, if
     possible (JAX package: batch/device.py:155).
@@ -147,9 +149,9 @@ def try_device_recommend(pipeline, users, n: int | None, *, exact=None) -> ItemL
     Conditions: the pipeline has 'scorer'/'ranker'/'history-lookup'/
     'candidate-selector' nodes in the standard shape, the candidate
     selector excludes only user history, and the scorer is embedding-family.
-    The call runs on the device where the scorer's item table lies.
-    Returns None when unsupported (the caller falls back to per-query
-    execution).
+    The call runs on the device where the scorer's item table lies, or over
+    ``mesh``'s ``data`` slots.  Returns None when unsupported (the caller
+    falls back to per-query execution).
     """
     from lkpy_tpu_torch.models.basic import TopNRanker, TrainingItemsCandidateSelector, UserTrainingHistoryLookup
 
@@ -171,8 +173,8 @@ def try_device_recommend(pipeline, users, n: int | None, *, exact=None) -> ItemL
     if n is None or n < 0:
         return None
     table = _extract_arrays(scorer)["i_embed"]
-    device = table.device if isinstance(table, torch.Tensor) else None
-    return device_recommend(scorer, users, n, lookup.interactions, exact=exact, device=device)
+    device = table.device if isinstance(table, torch.Tensor) and mesh is None else None
+    return device_recommend(scorer, users, n, lookup.interactions, exact=exact, device=device, mesh=mesh)
 
 
 class PendingRecommend:
@@ -249,6 +251,7 @@ def device_recommend_async(
     key_field: str = "user_id",
     exact: bool | None = None,
     device: str | torch.device | None = None,
+    mesh=None,
     timings: dict | None = None,
 ) -> PendingRecommend:
     """
@@ -267,6 +270,11 @@ def device_recommend_async(
             (exact recall meets any recall target of the TPU's approximate
             path).
         device: where to run; the card unless ``device="cpu"``.
+        mesh: a :class:`~lkpy_tpu_torch.parallel.mesh.Mesh`: each block's
+            users split over its ``data`` slots (the block rounds to a
+            multiple of them), the tables and the training CSR resident on
+            each slot's device, the lists read back once from its first
+            slot; ``device`` is not read.
         timings: a dict that ``result()`` fills with the JAX package's keys:
             ``enqueue_s`` and ``readback_s`` on the host clock, ``trace``, a
             list of ``(label, seconds, bytes)`` with one entry for each copy
@@ -278,7 +286,7 @@ def device_recommend_async(
     scores rounded to float16, the JAX package's compact readback; the
     lists are the same.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.first
     sw = Stopwatch()
     serving = lkpy_tpu_config().serving
     arrays = _extract_arrays(scorer)
@@ -333,6 +341,7 @@ def device_recommend_async(
         u_table=u_table,
         u_bias=u_bias_t,
         block=chunk,
+        mesh=mesh,
         timings=timings,
     )
     f16 = serving.readback_precision == "f16"

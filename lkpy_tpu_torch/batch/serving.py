@@ -10,7 +10,11 @@ power-of-two ladder rung (64·2^j), and consecutive blocks on one rung form a
 group (:func:`plan_groups`).  Each block then runs fold-in (or a user-table
 lookup), one (B, k) × (k, n_items) product, history masking and an exact
 top-n, all enqueued on the current stream without a host sync; the only
-readback is the (N, n) result in :meth:`PendingServe.finalize`.
+readback is the (N, n) result in :meth:`PendingServe.finalize`.  With a
+mesh the block rounds to a multiple of its ``data`` slots and each block's
+users split into one slab a slot: the slab's fold-in, product, masking and
+top-n run on the slot's device (the CSR and the tables resident there), and
+its lists move to the first slot, from where they are read back once.
 
 What the TPU engine does for its remote transport is left out: the pieced
 f16/u16 readback, resident scalars and the per-group scan programs.  Results
@@ -197,33 +201,48 @@ def enqueue_serve(
     u_table: torch.Tensor | None = None,
     u_bias: torch.Tensor | None = None,
     block: int = 1024,
+    mesh=None,
     timings: dict | None = None,
 ) -> PendingServe:
     """Issue all device work for one serving batch of user numbers ``nums``
     (−1 for unknown users) against the training ``csr``.  ``kern`` is a
     fold-in kernel (with ``kern_args``) or None to look users up in
-    ``u_table``.  ``timings`` is filled by ``finalize()``."""
+    ``u_table``.  With ``mesh`` each block's users split over its ``data``
+    slots and ``device`` is its first slot's.  ``timings`` is filled by
+    ``finalize()``."""
     trace: list | None = [] if timings is not None else None
     t0 = time.perf_counter()
     n = min(n, n_items)  # catalogs smaller than the requested list length
+    slots = [device] if mesh is None else mesh.axis_devices("data")
+    d = len(slots)
+    block = max(block, d) // d * d
     plan = plan_groups(np.asarray(nums), csr.row_lengths(), block)
-    indptr, colv, valv = _resident_csr(csr, needs_vals, device, trace)
-    tu = time.perf_counter()
+
+    def resident(x):
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    # what a slab reads, once a distinct device: the CSR, the tables and the user numbers
+    at = {}
     nums_host = plan.nums_padded.astype(np.int64)
-    nums_dev = torch.from_numpy(nums_host).to(device)
-    if trace is not None:
-        trace.append(("upload:user_nums", time.perf_counter() - tu, nums_host.nbytes))
+    for dev in dict.fromkeys(slots):
+        indptr, colv, valv = _resident_csr(csr, needs_vals, dev, trace)
+        tu = time.perf_counter()
+        nums_dev = torch.from_numpy(nums_host).to(dev)
+        if trace is not None:
+            trace.append(("upload:user_nums", time.perf_counter() - tu, nums_host.nbytes))
+        tables = (resident(i_emb), resident(i_bias), resident(u_table), resident(u_bias))
+        at[dev] = (nums_dev, indptr, colv, valv, tables, tuple(resident(a) for a in kern_args))
     n_pad = len(plan.nums_padded)
     v = torch.empty((n_pad, n), dtype=torch.float32, device=device)
     ix = torch.empty((n_pad, n), dtype=torch.int32, device=device)
     B = plan.block
+    sb = B // d
     for g in plan.groups:
         for c in range(g.start, g.start + g.chunks):
-            lo = c * B
-            users = nums_dev[lo : lo + B]
-            vb, ib = _serve_block(
-                users, indptr, colv, valv, i_emb, i_bias, offset, u_table, u_bias, kern, kern_args, g.width, n
-            )
-            v[lo : lo + B] = vb
-            ix[lo : lo + B] = ib
+            for s, dev in enumerate(slots):
+                lo = c * B + s * sb
+                nums_dev, indptr, colv, valv, (ie, ib, ut, ub), args = at[dev]
+                vb, ib_ = _serve_block(nums_dev[lo : lo + sb], indptr, colv, valv, ie, ib, offset, ut, ub, kern, args, g.width, n)
+                v[lo : lo + sb] = vb.to(device)
+                ix[lo : lo + sb] = ib_.to(device)
     return PendingServe(v, ix, plan.order, len(nums), time.perf_counter() - t0, trace, timings)

@@ -245,7 +245,10 @@ class ALSTrainerBase(ModelTrainer):
 
     The rows are bucketed and chunked once, on the ladder of the settings'
     ``training_perf.ladder_ratio``, and stay on the training device across
-    epochs, with the factor tables.  ``epochs_trained`` counts the epochs
+    epochs, with the factor tables.  With ``TrainingOptions.mesh`` each
+    chunk's rows split over the mesh's ``data`` slots (each slab on its
+    slot's device) and the tables lie on its first slot, replicated to the
+    others within a half-epoch, as the JAX package replicates them.  ``epochs_trained`` counts the epochs
     and ``last_delta`` is the last epoch's update delta, a device scalar."""
 
     mode = "explicit"
@@ -257,14 +260,15 @@ class ALSTrainerBase(ModelTrainer):
         scorer.items = data.items
         self.rng = options.random_generator()
         self.device = options.configured_device()
+        self.mesh = options.mesh
         self.epochs_trained = 0
         self.last_delta: torch.Tensor | None = None
 
         ui_csr = self.prepare_matrix(data)
         iu_csr = ui_csr.transpose()
         ratio = lkpy_tpu_config().training_perf.ladder_ratio
-        self.u_buckets = als_ops.chunk_buckets(bucket_rows(ui_csr, field="rating", ratio=ratio), device=self.device)
-        self.i_buckets = als_ops.chunk_buckets(bucket_rows(iu_csr, field="rating", ratio=ratio), device=self.device)
+        self.u_buckets = als_ops.chunk_buckets(bucket_rows(ui_csr, field="rating", ratio=ratio), device=self.device, mesh=self.mesh)
+        self.i_buckets = als_ops.chunk_buckets(bucket_rows(iu_csr, field="rating", ratio=ratio), device=self.device, mesh=self.mesh)
 
         # users first, then items: the JAX package draws them in this order
         k = self.config.embedding_size
@@ -291,6 +295,7 @@ class ALSTrainerBase(ModelTrainer):
             self.config.user_reg,
             self.config.item_reg,
             mode=self.mode,
+            mesh=self.mesh,
         )
         self.epochs_trained += 1
         self.last_delta = du + di
@@ -299,11 +304,11 @@ class ALSTrainerBase(ModelTrainer):
     def _half_epoch(self, side: str) -> float:
         if side == "user":
             self.u_factors, delta = als_ops.als_half_epoch(
-                self.u_buckets, self.u_factors, self.i_factors, self.config.user_reg, mode=self.mode
+                self.u_buckets, self.u_factors, self.i_factors, self.config.user_reg, mode=self.mode, mesh=self.mesh
             )
         else:
             self.i_factors, delta = als_ops.als_half_epoch(
-                self.i_buckets, self.i_factors, self.u_factors, self.config.item_reg, mode=self.mode
+                self.i_buckets, self.i_factors, self.u_factors, self.config.item_reg, mode=self.mode, mesh=self.mesh
             )
         return delta
 

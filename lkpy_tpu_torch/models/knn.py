@@ -10,8 +10,11 @@ the reference's min_sim/save_nbrs/min_nbrs/max_nbrs semantics
 leaves the neighbour table (item kNN) or the normalized user vectors and
 item buckets (user kNN) there; ``__call__`` scores one query where they lie
 and reads scores and counts back once.  Each scorer's ``from_numpy`` builds
-one from state trained elsewhere.  Multi-device builds (the JAX package's
-``options.mesh``) are not part of the port yet.
+one from state trained elsewhere.  With ``TrainingOptions.mesh`` the item
+similarity rows shard over the mesh's ``model`` slots
+(:func:`lkpy_tpu_torch.parallel.knn.sharded_similarity_topk`) and the
+table lies on its first slot; user kNN does not read the mesh, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -119,8 +122,13 @@ class ItemKNNScorer(Component):
         normed, means = knn_ops.normalize_item_matrix(iu, explicit=self.config.explicit)
         log.debug("normalized item vectors", time=str(sw))
         k = self.config.save_nbrs or self.config.nbr_table_cap
-        # ui anchors the large-catalog Gram path's device structure
-        self.sim_table = knn_ops.similarity_topk(normed, k, self.config.min_sim, user_major=ui, device=dev)
+        if options.mesh is not None:
+            from lkpy_tpu_torch.parallel.knn import sharded_similarity_topk
+
+            self.sim_table = sharded_similarity_topk(normed, k, self.config.min_sim, mesh=options.mesh)
+        else:
+            # ui anchors the large-catalog Gram path's device structure
+            self.sim_table = knn_ops.similarity_topk(normed, k, self.config.min_sim, user_major=ui, device=dev)
         self.items = data.items
         self.item_means = means
         self.item_counts = self.sim_table.counts()

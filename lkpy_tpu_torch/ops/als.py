@@ -21,6 +21,11 @@ epochs.  Each chunk of a half-epoch
 3. scatters the real rows' solutions into the factor table and adds their
    change to the update delta.
 
+With a mesh (``chunk_buckets(..., mesh=)``, ``als_epoch(..., mesh=)``) each
+chunk's rows split into one slab a ``data`` slot, the slab's arrays on the
+slot's device; each slot runs both kernels on its slab and the solutions
+reach every device's copy of the table (:class:`ShardedChunks`).
+
 Fold-in of serving (:func:`solve_implicit_bucket`,
 :func:`solve_explicit_bucket`, and :func:`solve_row_implicit`,
 :func:`solve_row_explicit` for one query) forms its equations with the same
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.ops.gather_gram import _launch as _gather_gram_launch
 from lkpy_tpu_torch.ops.gather_gram import gather_gram
 from lkpy_tpu_torch.ops.sparse import PaddedRowMatrix
 from lkpy_tpu_torch.ops.spd_solve import spd_solve
@@ -47,6 +53,7 @@ from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
 
 __all__ = [
     "ChunkedRows",
+    "ShardedChunks",
     "als_epoch",
     "als_half_epoch",
     "batched_spd_solve",
@@ -114,9 +121,13 @@ class ChunkedRows(NamedTuple):
     """A padded row bucket reshaped into fixed-shape chunks, on the device.
 
     ``rows[c, b]`` is the original row number of slot (c, b).  The bucket's
-    ``n_real`` real rows fill the first slots of ``rows.reshape(-1)``; the
-    padding rows after them carry row number INT32_MAX (out of range for any
-    table) and no entries.
+    ``n_real`` real rows fill the first slots of the bucket's rows in
+    order; the padding rows after them carry row number INT32_MAX (out of
+    range for any table) and no entries.  The tensors hold rows
+    ``first:first + B`` of chunks that are ``stride`` rows wide (the whole
+    chunk: 0 and B; a slab of a sharded bucket: a part of it), and
+    ``plan_rows`` is the rows of the unsharded chunk, which the
+    gather-and-Gram kernel's launch plan is chosen for.
     """
 
     rows: torch.Tensor  # (C, B) int32
@@ -124,49 +135,82 @@ class ChunkedRows(NamedTuple):
     values: torch.Tensor  # (C, B, P) f32
     mask: torch.Tensor  # (C, B, P) bool
     n_real: int
+    first: int
+    stride: int
+    plan_rows: int
 
     def real_rows(self, c: int) -> int:
         """How many of chunk ``c``'s slots hold real rows (they come first)."""
         B = self.rows.shape[1]
-        return max(0, min(B, self.n_real - c * B))
+        return max(0, min(B, self.n_real - self.first - c * self.stride))
+
+
+class ShardedChunks(NamedTuple):
+    """A bucket's chunks split over a mesh's ``data`` slots: ``slabs[s]``
+    holds slab ``s`` of every chunk, on slot ``s``'s device."""
+
+    slabs: tuple[ChunkedRows, ...]
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """(chunks, rows a chunk, width), as the JAX package's chunks."""
+        C, B, P = self.slabs[0].cols.shape
+        return C, B * len(self.slabs), P
 
 
 def chunk_buckets(
     buckets: list[PaddedRowMatrix],
     *,
+    mesh=None,
     entries: int = _CHUNK_ENTRIES,
     device: str | torch.device | None = None,
-) -> tuple[ChunkedRows, ...]:
+) -> tuple[ChunkedRows, ...] | tuple[ShardedChunks, ...]:
     """Reshape padded buckets into fixed-shape chunks and upload them.
 
     Each bucket of width P is split into C chunks of B ≈ ``entries // P``
     rows.  The chunk count is picked first and the chunks are then sized to
-    fit, so a bucket gains fewer than 8 padding rows per chunk (each costs
-    a full solve).  The arrays go to ``device`` (the card unless
-    ``device="cpu"``) once; the trainer keeps them there across epochs.
+    fit, so a bucket gains fewer than 8·d padding rows per chunk (each costs
+    a full solve), d being the mesh's ``data`` slots (1 without a mesh).
+    The arrays go to ``device`` (the card unless ``device="cpu"``) once; the
+    trainer keeps them there across epochs.  With ``mesh`` each chunk's rows
+    split into d slabs of B/d rows, slab s on ``data`` slot s's device, and
+    each bucket is a :class:`ShardedChunks`; the gather-and-Gram kernel
+    plans each slab's launch for the rows the unsharded chunk would have,
+    so the mesh changes no row's arithmetic.
     """
-    dev = resolve_device(device)
+    slots = [resolve_device(device)] if mesh is None else mesh.axis_devices("data")
+    d = len(slots)
     out = []
     for b in buckets:
         Bn, P = b.cols.shape
-        step0 = max(entries // max(P, 1), 8)
+        step0 = max(entries // max(P, 1), 8 * d)
         C = max(-(-Bn // step0), 1)
-        step = -(-Bn // (C * 8)) * 8
+        step = -(-Bn // (C * 8 * d)) * (8 * d)
         pad = C * step - Bn
-        rows = np.pad(b.rows, (0, pad), constant_values=INT32_MAX)
-        cols = np.pad(b.cols, ((0, pad), (0, 0)))
-        mask = np.pad(b.mask, ((0, pad), (0, 0)))
-        vals = mask.astype(np.float32) if b.values is None else np.pad(b.values, ((0, pad), (0, 0)))
-        out.append(
+        rows = np.pad(b.rows, (0, pad), constant_values=INT32_MAX).reshape(C, step)
+        cols = np.pad(b.cols, ((0, pad), (0, 0))).reshape(C, step, P)
+        mask = np.pad(b.mask, ((0, pad), (0, 0))).reshape(C, step, P)
+        vals = mask.astype(np.float32) if b.values is None else np.pad(b.values, ((0, pad), (0, 0))).reshape(C, step, P)
+        sb = step // d
+        # the rows of this bucket's chunks without a mesh
+        C1 = max(-(-Bn // max(entries // max(P, 1), 8)), 1)
+        plan_rows = -(-Bn // (C1 * 8)) * 8
+        slabs = tuple(
             ChunkedRows(
-                torch.from_numpy(rows.reshape(C, step)).to(dev),
-                torch.from_numpy(cols.reshape(C, step, P)).to(dev),
-                torch.from_numpy(vals.reshape(C, step, P)).to(dev),
-                torch.from_numpy(mask.reshape(C, step, P)).to(dev),
+                *(torch.from_numpy(np.ascontiguousarray(a[:, s * sb : (s + 1) * sb])).to(dev) for a in (rows, cols, vals, mask)),
                 Bn,
+                s * sb,
+                step,
+                plan_rows,
             )
+            for s, dev in enumerate(slots)
         )
+        out.append(slabs[0] if mesh is None else ShardedChunks(slabs))
     return tuple(out)
+
+
+def _slabs(chunks) -> list[ChunkedRows]:
+    return [s for ch in chunks for s in (ch.slabs if isinstance(ch, ShardedChunks) else (ch,))]
 
 
 def chunk_stats(chunks: tuple[ChunkedRows, ...]) -> dict:
@@ -175,7 +219,7 @@ def chunk_stats(chunks: tuple[ChunkedRows, ...]) -> dict:
     ``occupancy`` is real entries / padded entries: every padded entry costs
     a gather and Gram work; padding rows also cost whole solves."""
     entries = real = rows = real_rows = 0
-    for ch in chunks:
+    for ch in _slabs(chunks):
         C, B, P = ch.cols.shape
         entries += C * B * P
         real += int(ch.mask.sum())
@@ -205,10 +249,21 @@ def epoch_flops(u_stats: dict, i_stats: dict, k: int, *, useful: bool) -> float:
     return gram + solves
 
 
-def _solve_chunk(cols, values, mask, right, otor, reg, mode: str) -> torch.Tensor:
-    """One chunk's row solves through the training kernel: (B, k)."""
-    A, y = gather_gram(cols, values, mask, right, **({"otor": otor} if mode == "implicit" else {"reg": reg}))
-    return spd_solve_chunked(A, y)
+def _normal_equations(cols, values, mask, right, otor, reg, mode: str, plan_rows: int | None = None):
+    """One chunk's normal equations (A, y) through the gather-and-Gram
+    kernel.  A slab of a sharded chunk on the card launches it with the plan
+    of the unsharded chunk's ``plan_rows`` rows, so each row is summed in
+    the order it is without a mesh (ROADMAP queue C: on distinct cards a
+    small bucket's slab then fills its card less)."""
+    kw = {"otor": otor} if mode == "implicit" else {"reg": reg}
+    if plan_rows in (None, cols.shape[0]) or right.device.type == "cpu":
+        return gather_gram(cols, values, mask, right, **kw)
+    return _gather_gram_launch(cols, values, mask, right, kw.get("otor"), kw.get("reg"), plan_rows)
+
+
+def _solve_chunk(cols, values, mask, right, otor, reg, mode: str, plan_rows: int | None = None) -> torch.Tensor:
+    """One chunk's row solves through the training kernels: (B, k)."""
+    return spd_solve_chunked(*_normal_equations(cols, values, mask, right, otor, reg, mode, plan_rows))
 
 
 def _run_half(left, right, reg: float, chunks, mode: str):
@@ -219,29 +274,45 @@ def _run_half(left, right, reg: float, chunks, mode: str):
     are read from ``left`` and written back, so the padding rows' solutions,
     which are NaN in explicit mode (A = 0), never reach the table or the
     delta, and no index is out of range.  Nothing here waits for the
-    device: the squared delta stays a device scalar.
+    device: the squared delta stays a device scalar.  Sharded chunks solve
+    each slab on its slot's device (a slab of padding only launches
+    nothing); every device keeps a copy of the table, the solutions are
+    written into each, and the delta is summed on ``left``'s device, where
+    the returned table lies.
     """
     if mode not in ("implicit", "explicit"):
         raise ValueError(f"unknown ALS mode {mode!r}")
-    left = left.clone()
+    home = left.device
+    slabs = _slabs(chunks)
+    devices = list(dict.fromkeys([home] + [s.rows.device for s in slabs]))
+    lefts = {dev: left.clone() if dev == home else left.to(dev) for dev in devices}
+    rights = {dev: right.to(dev) for dev in devices}
     otor = implicit_otor(right, reg) if mode == "implicit" else None
-    dsq = torch.zeros((), dtype=torch.float32, device=left.device)
+    otors = {dev: None if otor is None else otor.to(dev) for dev in devices}
+    dsq = torch.zeros((), dtype=torch.float32, device=home)
     for ch in chunks:
-        for c in range(ch.rows.shape[0]):
-            nv = ch.real_rows(c)
-            if nv == 0:
-                continue
-            x = _solve_chunk(ch.cols[c], ch.values[c], ch.mask[c], right, otor, reg, mode)[:nv]
-            rows = ch.rows[c, :nv]
-            dsq = dsq + torch.sum(torch.square(x - left[rows]))
-            left[rows] = x
-    return left, dsq
+        parts = ch.slabs if isinstance(ch, ShardedChunks) else (ch,)
+        for c in range(parts[0].rows.shape[0]):
+            for part in parts:
+                nv = part.real_rows(c)
+                if nv == 0:
+                    continue
+                dev = part.rows.device
+                x = _solve_chunk(part.cols[c], part.values[c], part.mask[c], rights[dev], otors[dev], reg, mode, part.plan_rows)[:nv]
+                rows = part.rows[c, :nv]
+                dsq = dsq + torch.sum(torch.square(x - lefts[dev][rows])).to(home)
+                for table_dev, table in lefts.items():
+                    table[rows.to(table_dev)] = x.to(table_dev)
+    return lefts[home], dsq
 
 
-def _as_chunks(buckets, device: torch.device) -> tuple[ChunkedRows, ...]:
+def _as_chunks(buckets, device: torch.device, mesh=None) -> tuple:
     if buckets and isinstance(buckets[0], PaddedRowMatrix):
-        return chunk_buckets(buckets, device=device)
-    return tuple(buckets)
+        return chunk_buckets(buckets, device=device, mesh=mesh)
+    chunks = tuple(buckets)
+    if mesh is not None and not all(isinstance(ch, ShardedChunks) for ch in chunks):
+        raise ValueError("chunks built without a mesh cannot run on one; build them with chunk_buckets(..., mesh=)")
+    return chunks
 
 
 def als_half_epoch(
@@ -251,6 +322,7 @@ def als_half_epoch(
     reg: float,
     *,
     mode: str,
+    mesh=None,
 ) -> tuple[torch.Tensor, float]:
     """
     Solve one side of an ALS iteration.
@@ -263,12 +335,14 @@ def als_half_epoch(
         right: (n_right, k) fixed factor table.
         reg: regularization strength.
         mode: "explicit" or "implicit".
+        mesh: optional :class:`~lkpy_tpu_torch.parallel.mesh.Mesh`; each
+            chunk's rows split over its ``data`` slots.
 
     Returns:
         (updated left table, Frobenius norm of the update delta) — the delta
         matches the reference's convergence metric (explicit.rs ``frob``).
     """
-    chunks = _as_chunks(buckets, left.device)
+    chunks = _as_chunks(buckets, left.device, mesh)
     left, delta_sq = _run_half(left, right, reg, chunks, mode)
     return left, float(torch.sqrt(delta_sq))
 
@@ -282,6 +356,7 @@ def als_epoch(
     i_reg: float,
     *,
     mode: str,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """
     One full ALS epoch (user half, then item half), without waiting for the
@@ -289,10 +364,13 @@ def als_epoch(
     with ``float`` only where a convergence check needs them.
     ``u_buckets``/``i_buckets`` may be bucket lists or pre-built
     :func:`chunk_buckets` tuples (pass the latter to avoid re-chunking and
-    re-uploading every epoch).  ``u`` and ``i`` are not modified.
+    re-uploading every epoch).  ``u`` and ``i`` are not modified.  With
+    ``mesh``, each chunk's rows split over its ``data`` slots and the
+    tables stay on the devices of ``u`` and ``i``, with a copy on each
+    other slot's device within a half-epoch.
     """
-    u_chunks = _as_chunks(u_buckets, u.device)
-    i_chunks = _as_chunks(i_buckets, i.device)
+    u_chunks = _as_chunks(u_buckets, u.device, mesh)
+    i_chunks = _as_chunks(i_buckets, i.device, mesh)
     u, du = _run_half(u, i, u_reg, u_chunks, mode)
     i, di = _run_half(i, u, i_reg, i_chunks, mode)
     return u, i, torch.sqrt(du), torch.sqrt(di)

@@ -145,8 +145,12 @@ def gather_gram(
 gather_gram.launches = 0
 
 
-def _launch(cols, values, mask, right, otor, reg) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors."""
+def _launch(cols, values, mask, right, otor, reg, plan_rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors, with the launch plan
+    (:func:`launch_plan`, which splits the rows of a small bucket into
+    segments) chosen for ``plan_rows`` rows (default B): a slab of a
+    sharded chunk (``ops/als.py``) passes the whole chunk's rows, so that
+    each row is summed in the order it is without a mesh."""
     B, P, k = _check(cols, values, mask, right, otor, reg)
     if right.device.type != "cuda":
         raise ValueError(f"gather_gram runs on cuda or cpu, not {right.device}")
@@ -163,7 +167,10 @@ def _launch(cols, values, mask, right, otor, reg) -> tuple[torch.Tensor, torch.T
     otor_c = None if otor is None else otor.contiguous()
     lib = _library()
     with torch.cuda.device(right.device):
-        S, L, ws_floats, sync_ints = launch_plan(B, P, k)
+        rows = plan_rows or B
+        S, L, ws_floats, sync_ints = launch_plan(rows, P, k)
+        # the workspace is a fixed size a row
+        ws_floats, sync_ints = ws_floats // rows * B, sync_ints // rows * B
         # rows split into S > 1 segments hand partial sums over through a workspace and counters
         ws = torch.empty(ws_floats, dtype=torch.float32, device=right.device) if S > 1 else None
         sync = torch.zeros(sync_ints, dtype=torch.int32, device=right.device) if S > 1 else None

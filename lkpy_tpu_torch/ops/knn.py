@@ -206,17 +206,17 @@ def _user_chunk(n_users: int, n_items: int, max_dense_bytes: int, slab_bytes: in
     return -(-n_users // n_chunks)
 
 
-def _accumulate(S: torch.Tensor, C: torch.Tensor) -> None:
-    """S += CᵀC with float32 sums: C is float32, or bf16 values whose
-    products are exact in float32 (on the card the bf16 product of
-    ``torch.mm(..., out_dtype=torch.float32)``)."""
+def _accumulate(S: torch.Tensor, C: torch.Tensor, R: torch.Tensor | None = None) -> None:
+    """S += CᵀR (R defaults to C) with float32 sums: C and R are float32,
+    or bf16 values whose products are exact in float32 (on the card the
+    bf16 product of ``torch.mm(..., out_dtype=torch.float32)``)."""
+    R = C if R is None else R
     if C.dtype == torch.float32:
-        S.addmm_(C.T, C)
+        S.addmm_(C.T, R)
     elif C.device.type == "cuda":
-        S.add_(torch.mm(C.T, C, out_dtype=torch.float32))
+        S.add_(torch.mm(C.T, R, out_dtype=torch.float32))
     else:
-        Cf = C.float()
-        S.addmm_(Cf.T, Cf)
+        S.addmm_(C.float().T, R.float())
 
 
 def _chunked_gram(rowptr, users, items, vals, n_users: int, n_items: int, user_chunk: int, bf16: bool) -> torch.Tensor:

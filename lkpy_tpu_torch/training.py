@@ -6,8 +6,12 @@ Port of ``lkpy_tpu/training.py`` (reference: src/lenskit/training.py:40,232,
 ``UsesTrainer`` epoch-loop driver and the ``ModelTrainer`` ABC.
 
 ``TrainingOptions.device`` names the torch device to train on; ``None``
-means the card (:func:`lkpy_tpu_torch.resolve_device`).  Multi-device
-training (the JAX package's ``mesh``) is not part of the port yet.
+means the card (:func:`lkpy_tpu_torch.resolve_device`).
+``TrainingOptions.mesh`` (a :class:`lkpy_tpu_torch.parallel.mesh.Mesh`)
+trains over a grid of device slots instead: the ALS trainers split each
+chunk's rows over its ``data`` slots and the item-kNN build shards the
+similarity rows over its ``model`` slots, the tables on its first slot;
+the other trainers do not read it yet.
 ``UsesTrainer`` reports its epochs through
 :func:`lkpy_tpu_torch.logging.item_progress`.
 """
@@ -39,6 +43,9 @@ class TrainingOptions:
         device: the torch device to train on; None means the card (``cuda``),
             ``"cpu"`` the CPU.
         rng: seed material for training randomness.
+        mesh: a :class:`~lkpy_tpu_torch.parallel.mesh.Mesh` to train over
+            (ALS, item kNN); training then runs on its slots and ``device``
+            is not read.
         environment: local environment overrides consulted before
             ``os.environ`` by :meth:`env_var` / :meth:`env_flag`.
     """
@@ -46,6 +53,7 @@ class TrainingOptions:
     retrain: bool = True
     device: str | torch.device | None = None
     rng: RNGInput = None
+    mesh: Any | None = None
     environment: dict[str, str] | None = None
 
     def env_var(self, name: str, default: str | None = None) -> str | None:
@@ -76,9 +84,12 @@ class TrainingOptions:
         return random_generator(self.rng)
 
     def configured_device(self, *, use_default_rng: bool = False) -> torch.device:
-        """The device training runs on: the card unless :attr:`device` says
-        otherwise.  ``use_default_rng`` is the JAX package's keyword and, as
-        there, changes nothing."""
+        """The device training runs on: the first slot of :attr:`mesh` where
+        one is given, else the card unless :attr:`device` says otherwise.
+        ``use_default_rng`` is the JAX package's keyword and, as there,
+        changes nothing."""
+        if self.mesh is not None:
+            return self.mesh.first
         return resolve_device(self.device)
 
 

@@ -1,5 +1,6 @@
 """On-card tests of the port's kernels and of its serving, training, retrieval,
-explicit, item-item, gradient and zoo slices.
+explicit, item-item, gradient and zoo slices, and of the mesh paths on two
+slots of one card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor ``lkpy_tpu``, so it runs where only PyTorch is installed:
@@ -1189,3 +1190,95 @@ def test_tuner_trial_at_256_on_card_matches_cpu(cuda, method):
     assert want.value > 0.3
     for k, v in want.metrics.items():
         assert abs(got.metrics[k] - v) <= 1e-4 * max(abs(v), 1e-12), k
+
+
+# ---------------------------------------------------------------------------
+# a data = 2 (or model = 2) mesh of two slots on one card
+def _two_slots(cuda, **spec):
+    from lkpy_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(**spec), devices=[cuda, cuda])
+
+
+@pytest.mark.parametrize("mode", ["implicit", "explicit"])
+def test_mesh_als_epoch_on_card_equals_unsharded(cuda, mode):
+    rng = np.random.default_rng(41)
+    ui = _interaction_csr(rng, mode=mode)
+    iu = ui.transpose()
+    mesh = _two_slots(cuda, data=2)
+    tabs = [torch.from_numpy((rng.standard_normal((n, 24)) * 0.1).astype(np.float32) ** 2).to(cuda) for n in ui.shape]
+    out = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        ub = als_ops.chunk_buckets(bucket_rows(ui, ratio=1.35), entries=2000, device=cuda, mesh=m)
+        ib = als_ops.chunk_buckets(bucket_rows(iu, ratio=1.35), entries=2000, device=cuda, mesh=m)
+        before = (spd_solve_chunked.launches, gather_gram.launches)
+        u, i, du, di = als_ops.als_epoch(ub, ib, *tabs, 0.1, 0.1, mode=mode, mesh=m)
+        torch.cuda.synchronize()
+        launched = (spd_solve_chunked.launches - before[0], gather_gram.launches - before[1])
+        parts = [p for ch in ub + ib for p in (ch.slabs if m is not None else (ch,))]
+        expect = sum(1 for p in parts for c in range(p.rows.shape[0]) if p.real_rows(c) > 0)
+        assert launched == (expect, expect)  # B1 and G once a non-empty slab (a chunk without the mesh)
+        out[name] = (u, i, float(du) ** 2 + float(di) ** 2)
+    assert out["mesh"][0].device.type == "cuda"
+    for a, b in zip(out["mesh"][:2], out["single"][:2]):
+        # G plans each slab's launch for the unsharded chunk's rows and B1 solves each system alone: the same bits
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    np.testing.assert_allclose(out["mesh"][2], out["single"][2], rtol=1e-5)
+
+
+def test_mesh_serving_block_on_card_equals_unsharded(cuda):
+    rng = np.random.default_rng(43)
+    n_users, k = 300, 32
+    u = np.repeat(np.arange(n_users), rng.integers(1, 150, size=n_users))
+    i = rng.integers(0, 500, size=len(u))
+    ds = from_interactions_df(pd.DataFrame({"user_id": u, "item_id": i}))
+    items = rng.standard_normal((ds.item_count, k)).astype(np.float32) * 0.3
+    params = {
+        "user_embeddings": rng.standard_normal((ds.user_count, k)).astype(np.float32) * 0.3,
+        "item_embeddings": items,
+        "_OtOr": implicit_otor(torch.from_numpy(items), 0.1).numpy(),
+    }
+    scorer = ImplicitMFScorer.from_numpy(params, {"features": k}, ds.users, ds.items, device=cuda)
+    users = ds.users.ids[::2]
+    mesh = _two_slots(cuda, data=2)
+    single = device_recommend(scorer, users, 20, ds.interaction_matrix(), chunk=64, device=cuda)
+    before = (spd_solve.launches, gather_gram.launches)
+    got = device_recommend(scorer, users, 20, ds.interaction_matrix(), chunk=64, mesh=mesh)
+    blocks = -(-len(users) // 64)
+    assert (spd_solve.launches - before[0], gather_gram.launches - before[1]) == (2 * blocks, 2 * blocks)
+    for (key, a), (key2, b) in zip(single.items(), got.items()):
+        assert key == key2
+        np.testing.assert_allclose(b.scores(), a.scores(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [10, 64])
+def test_mesh_retrieval_on_card_launches_b3_a_shard(cuda, k):
+    from lkpy_tpu_torch.parallel.ops import shard_rows, sharded_matmul_topk
+
+    rng = np.random.default_rng(45)
+    n = 2 * FUSED_RETRIEVAL_MIN_ITEMS + 17
+    q = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32)).to(cuda)
+    mesh = _two_slots(cuda, model=2)
+    placed = shard_rows(table, mesh)
+    assert all(fused_route("cuda", 300, p.shape[0], k) for p in placed.parts)
+    before = mips_topk.launches
+    vals, idx = sharded_matmul_topk(q, placed, k, mesh)
+    torch.cuda.synchronize()
+    assert mips_topk.launches - before == 2
+    want_v, want_i = retrieval_topk(q, table, k)
+    _assert_topk_close((vals, idx), (want_v, want_i))
+
+
+@pytest.mark.parametrize("B,P", [(64, 3000), (1000, 120), (16, 158_240)])
+def test_gather_gram_slab_planned_for_its_chunk_equals_the_chunk(cuda, B, P):
+    rng = np.random.default_rng(B + P)
+    cols, vals, mask, right, otor = _gram_inputs(rng, B, P, 64, cuda, holes=True)
+    A, y = gather_gram(cols, vals, mask, right, otor=otor)
+    half = B // 2
+    for lo in (0, half):
+        before = gather_gram.launches
+        A2, y2 = als_ops._normal_equations(cols[lo : lo + half], vals[lo : lo + half], mask[lo : lo + half], right, otor, 0.1, "implicit", B)
+        assert gather_gram.launches - before == 1
+        li = torch.tril_indices(64, 64, device=cuda)
+        assert torch.equal(A2[:, li[0], li[1]], A[lo : lo + half, li[0], li[1]]) and torch.equal(y2, y[lo : lo + half])
