@@ -136,10 +136,15 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      ``sharded_matmul_topk`` of 4,096 rows against the 500,000-row table
      (B3 once a shard, float64 k-th scores) and the item-kNN build dense,
      streaming and through ``ItemKNNScorer`` (each table against the
-     ``knn_build_phase``'s, peak memory); two processes of
-     ``distributed_recommend`` on the card over gloo (``--mesh-child``,
-     the pipeline phase's tables through ``state``; the merged lists, the
-     log relay, no JAX) and ``dryrun_multichip(8)``.
+     ``knn_build_phase``'s, peak memory); the gradient phase's
+     FlexMF-BPR for one epoch on the ``data = 2`` mesh and its LightGCN for
+     one on the ``model = 2`` mesh, tables row-sharded over the ``model``
+     slots (loss and tables against the gradient phase's first, unsharded
+     epoch from the same seed; epoch times and device launches a step of
+     both); two processes of ``distributed_recommend`` on the card over
+     gloo (``--mesh-child``, the pipeline phase's tables through ``state``;
+     the merged lists, the log relay, no JAX) and ``dryrun_multichip(8)``,
+     whose line must name its FlexMF and LightGCN parts.
    The serving path's calls also carry ``timings`` (the JAX package's four
    keys, each copy between host and card a trace entry).
 4. Logs every phase's wall time, prints one JSON line describing each
@@ -445,6 +450,13 @@ MESH_RETR_K = (10, 64)
 MESH_KNN_MIN_BLOCKS = 4
 #: seconds the two processes of distributed_recommend may take
 MESH_CHILD_TIMEOUT_S = 300
+#: the gradient family on the mesh: one epoch against the gradient phase's first (unsharded) epoch from the same
+#: seed, the loss within this relative difference and the tables within this relative Frobenius distance (the
+#: sharded step sums each gradient over smaller blocks, so the two agree to rounding, not to the bit)
+MESH_GRAD_LOSS_TOL = 1e-4
+MESH_GRAD_TABLE_TOL = 1e-4
+#: steps profiled for the device launches a step of each gradient trainer
+GRAD_PROFILE_STEPS = 3
 
 
 def log(*args):
@@ -2705,6 +2717,38 @@ def timed_epochs(trainer, epochs: int) -> tuple[list, list]:
     return times, losses
 
 
+def first_epoch(trainer, times: list, losses: list) -> dict:
+    """A trainer's first epoch for the mesh phase to hold its sharded epoch
+    against: host seconds, mean loss and the tables as NumPy arrays."""
+    return dict(s=times[0], loss=losses[0], tables=trainer.get_parameters())
+
+
+def launches_a_step(trainer, dev, label: str) -> dict:
+    """Device launches and busy ms a step of ``trainer`` over
+    ``GRAD_PROFILE_STEPS`` steps of random batches of its examples, after
+    one such step unprofiled (``torch.profiler``; the steps change the
+    trainer's tables)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ex = trainer.examples
+    picks = [torch.randint(0, ex.nnz, (GRAD_BATCH,), generator=gen, device=dev) for _ in range(GRAD_PROFILE_STEPS + 1)]
+    batches = [(ex.row[i], ex.col[i]) for i in picks]
+
+    def steps(todo):
+        for users, items in todo:
+            trainer.opt.zero_grad()
+            trainer.batch_loss(users, items).backward()
+            trainer.opt.step()
+
+    steps(batches[:1])
+    evs = device_events(lambda: steps(batches[1:]))
+    out = dict(
+        launches=sum(e.count for e in evs) / GRAD_PROFILE_STEPS,
+        busy_ms=sum(e.self_device_time_total for e in evs) / 1e3 / GRAD_PROFILE_STEPS,
+    )
+    log(f"{label}: {out['launches']:.1f} device launches and {out['busy_ms']:.3f} ms device busy a step ({GRAD_PROFILE_STEPS} steps profiled)")
+    return out
+
+
 def check_negatives(trainer, csr, dev) -> int:
     """One batch's negatives from the trainer's own sampler: every training
     positive among them must be a slot whose 16 attempts the Bloom filter
@@ -2764,6 +2808,7 @@ def flexmf_phase(dev, split: dict) -> tuple[dict, dict]:
         raise AssertionError("FlexMF's tables must lie on the card")
     steps = -(-nnz // GRAD_BATCH)
     warm, warm_loss = timed_epochs(trainer, 1)
+    split["grad_first"] = {"flexmf": first_epoch(trainer, warm, warm_loss)}
     times, losses = timed_epochs(trainer, FLEXMF_EPOCHS - 1)
     losses = warm_loss + losses
     if not np.isfinite(losses).all():
@@ -2797,6 +2842,7 @@ def flexmf_phase(dev, split: dict) -> tuple[dict, dict]:
     )
     if not nd > pop:
         raise AssertionError(f"FlexMF-BPR NDCG@10 {nd} not above the popularity ranking's {pop}")
+    split["grad_first"]["flexmf"]["step"] = launches_a_step(trainer, dev, "FlexMF-BPR unsharded")
     out = dict(
         setup_s=setup_s, bloom_s=bloom_s, warm_s=warm[0], epoch_s=times, best_s=best, median_s=median,
         examples_per_s=nnz / best, busy_ms=busy, idle_share=idle, ndcg=nd, popularity_ndcg=pop,
@@ -2932,7 +2978,10 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
-    times, losses = timed_epochs(trainer, 2)
+    times, losses = timed_epochs(trainer, 1)
+    split["grad_first"]["lightgcn"] = first_epoch(trainer, times, losses)
+    more = timed_epochs(trainer, 1)
+    times, losses = times + more[0], losses + more[1]
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(
         f"LightGCN (k={GRAD_FEATURES}, batch {GRAD_BATCH}, {len(trainer.blend) - 1} layers): set-up {setup_s:.3f}s, "
@@ -2990,6 +3039,7 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     launches = read_counts()
     log(f"LightGCN NDCG@10 after 2 epochs: {nd:.4f} (device_recommend {serve_s:.3f}s); launches {launches}")
     routes = propagate_routes(trainer)
+    split["grad_first"]["lightgcn"]["step"] = launches_a_step(trainer, dev, "LightGCN unsharded")
     out = dict(
         setup_s=setup_s, epoch_s=times, examples_per_s=nnz / times[1], losses=losses, peak_gib=peak,
         steps_wall_ms=wall, steps_busy_ms=busy, spmm_ms_per_direction=per_direction,
@@ -4730,6 +4780,73 @@ def mesh_knn(dev, split: dict, mesh) -> tuple[dict, dict]:
     return launches, out
 
 
+def mesh_gradient(dev, split: dict, mesh, kind: str) -> tuple[dict, dict]:
+    """The gradient phase's FlexMF-BPR or LightGCN (k = 64, batch 32,768,
+    seed 42) for one epoch over ``mesh``: the tables row-sharded over its
+    ``model`` slots, each batch split over its ``data`` slots.  The loss and
+    tables against the gradient phase's first epoch, which is the unsharded
+    epoch from the same seed, configuration and split; the epoch times and
+    the device launches a step of both."""
+    from lkpy_tpu_torch.models import FlexMFImplicitScorer, LightGCNScorer
+    from lkpy_tpu_torch.parallel.ops import Sharded
+    from lkpy_tpu_torch.training import TrainingOptions
+
+    want = split["grad_first"][kind]
+    if kind == "flexmf":
+        cfg = {"embedding_size": GRAD_FEATURES, "loss": "pairwise", "batch_size": GRAD_BATCH, "epochs": FLEXMF_EPOCHS}
+        scorer, label = FlexMFImplicitScorer(FlexMFImplicitScorer.validate_config(cfg)), "FlexMF-BPR"
+    else:
+        cfg = {"embedding_size": GRAD_FEATURES, "batch_size": GRAD_BATCH, "epochs": 2}
+        scorer, label = LightGCNScorer(LightGCNScorer.validate_config(cfg)), "LightGCN"
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer = scorer.create_trainer(split["ds"], TrainingOptions(rng=42, mesh=mesh))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    slots = [torch.empty(0, device=d).device for d in mesh.axis_devices("model")]  # "cuda" as "cuda:0"
+    for name, table in trainer.params.items():
+        if not isinstance(table, Sharded) or [p.device for p in table.parts] != slots:
+            raise AssertionError(f"mesh {label}: {name} must lie in one block on each of the {len(slots)} model slots")
+    times, losses = timed_epochs(trainer, 1)
+    got = trainer.get_parameters()
+    launches = read_counts()
+    loss_err = abs(losses[0] - want["loss"]) / abs(want["loss"])
+    errs = {}
+    for name, w in want["tables"].items():
+        g = got[name]
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"mesh {label}: {name} of shape {g.shape} (unsharded {w.shape}) must be finite")
+        errs[name] = float(np.linalg.norm(g.astype(np.float64) - w) / np.linalg.norm(w.astype(np.float64)))
+    step = launches_a_step(trainer, dev, f"{label} on {mesh.shape}")
+    steps = -(-split["ds"].interaction_count // (GRAD_BATCH - GRAD_BATCH % mesh.shape["data"]))
+    grad = split["gradient"][kind]
+    later = grad["median_s"] if kind == "flexmf" else grad["epoch_s"][1]
+    log(
+        f"mesh {label} on {mesh.shape} ({steps} steps): set-up {setup_s:.3f}s, its first epoch {times[0]:.3f}s against the "
+        f"unsharded trainer's first {want['s']:.3f}s and later {later:.3f}s (the gradient phase's; "
+        f"{'the median of epochs 2-5' if kind == 'flexmf' else 'the second epoch'}); loss {losses[0]!r} against {want['loss']!r} (relative "
+        f"{loss_err:.3e}); tables against the unsharded, relative Frobenius {errs}; device launches a step "
+        f"{step['launches']:.1f} against {want['step']['launches']:.1f}; kernel launches {launches}"
+    )
+    if not (np.isfinite(losses[0]) and np.isfinite(want["loss"])):
+        raise AssertionError(f"mesh {label}: the losses must be finite ({losses[0]}, {want['loss']})")
+    if loss_err > MESH_GRAD_LOSS_TOL:
+        raise AssertionError(f"mesh {label}: loss {losses[0]} differs from the unsharded {want['loss']} by {loss_err} relative (limit {MESH_GRAD_LOSS_TOL})")
+    if max(errs.values()) > MESH_GRAD_TABLE_TOL:
+        raise AssertionError(f"mesh {label}: the tables differ from the unsharded ones by {errs} (limit {MESH_GRAD_TABLE_TOL})")
+    if any(launches.values()):
+        raise AssertionError(f"the mesh {label} path launched a kernel: {launches}")
+    del trainer, got
+    torch.cuda.empty_cache()
+    out = dict(setup_s=setup_s, epoch_s=times[0], unsharded_epoch_s=want["s"], unsharded_later_epoch_s=later,
+               loss=losses[0], unsharded_loss=want["loss"],
+               loss_rel_err=loss_err, table_rel_frobenius=errs, steps=steps, launches_a_step=step["launches"],
+               busy_ms_a_step=step["busy_ms"], unsharded_launches_a_step=want["step"]["launches"],
+               unsharded_busy_ms_a_step=want["step"]["busy_ms"])  # fmt: skip
+    return launches, out
+
+
 def mesh_children(dev, split: dict, tmp) -> list:
     """Start the two processes of ``distributed_recommend`` on the card
     (``--mesh-child``) with the pipeline phase's tables and training set
@@ -4866,9 +4983,10 @@ def slot_launches(split: dict, path: str, kernel: str) -> dict:
 
 def mesh_phase(dev, split: dict) -> dict:
     """The sharded paths at full width on two slots of the card (a
-    ``data = 2`` mesh for ALS training and serving, ``model = 2`` for
-    retrieval and the kNN build), two processes of ``distributed_recommend``
-    over gloo started first and checked last, and ``dryrun_multichip(8)``.
+    ``data = 2`` mesh for ALS training and serving and FlexMF-BPR's epoch,
+    ``model = 2`` for retrieval, the kNN build and LightGCN's epoch), two
+    processes of ``distributed_recommend`` over gloo started first and
+    checked last, and ``dryrun_multichip(8)``.
     Returns the launches of each path; ``split["mesh"]`` keeps the rest."""
     import shutil
     import tempfile
@@ -4888,11 +5006,16 @@ def mesh_phase(dev, split: dict) -> dict:
         paths["mesh_serving"], info["serving"] = mesh_serving(dev, split, data2)
         paths["mesh_retrieval"], info["retrieval"] = mesh_retrieval(dev, split, model2)
         paths["mesh_knn"], info["knn"] = mesh_knn(dev, split, model2)
+        paths["mesh_flexmf"], info["flexmf"] = mesh_gradient(dev, split, data2, "flexmf")
+        paths["mesh_lightgcn"], info["lightgcn"] = mesh_gradient(dev, split, model2, "lightgcn")
         zero_counts()
         ts = time.perf_counter()
         info["dryrun"] = dryrun_multichip(8, device=dev.type)
         paths["mesh_dryrun"] = read_counts()
         log(f"dryrun_multichip(8) on the card: {time.perf_counter() - ts:.1f}s; launches {paths['mesh_dryrun']}")
+        for part in ("sharded FlexMF-BPR == single-device", "sharded LightGCN step + model-sharded dense adjacency ok"):
+            if part not in info["dryrun"]:
+                raise AssertionError(f"dryrun_multichip's line does not name '{part}': {info['dryrun']}")
         info["processes"] = mesh_children_check(dev, split, tmp, procs)
     finally:
         for p in procs:

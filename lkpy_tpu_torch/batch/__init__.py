@@ -38,6 +38,9 @@ def recommend(pipeline, users, n=None, *, queries=None, n_jobs=None, device=True
     if device and queries is None and not isinstance(users, ItemListCollection):
         flat = _flatten_user_ids(users)
         if flat is not None:
+            # the flattening consumed a one-pass iterable (a generator,
+            # ``split.test.keys()``): the runner below takes the IDs
+            users = flat
             if distributed:
                 from lkpy_tpu_torch.batch.device import supports_device_batch
                 from lkpy_tpu_torch.batch.distributed import distributed_recommend

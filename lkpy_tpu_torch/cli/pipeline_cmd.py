@@ -47,21 +47,6 @@ def expand(model_spec, spec_file, params, list_length, output):
 @click.option("-m", "--model", "model_spec", required=True)
 def diagram(model_spec):
     """Print a Mermaid diagram of the pipeline (reference: pipeline/_diagram.py)."""
-    from lkpy_tpu_torch.pipeline import topn_pipeline
-    from lkpy_tpu_torch.pipeline.nodes import ComponentNode, FallbackNode, InputNode
+    from lkpy_tpu_torch.pipeline import pipeline_diagram, topn_pipeline
 
-    pipe = topn_pipeline(resolve_model(model_spec), name=model_spec)
-    lines = ["flowchart TD"]
-    for node in pipe.nodes:
-        nid = node.name.replace("-", "_")
-        if isinstance(node, InputNode):
-            lines.append(f"    {nid}[/{node.name}/]")
-        elif isinstance(node, FallbackNode):
-            lines.append(f"    {nid}{{{{{node.name}}}}}")
-            for alt in node.alternatives:
-                lines.append(f"    {alt.replace('-', '_')} -.-> {nid}")
-        elif isinstance(node, ComponentNode):
-            lines.append(f"    {nid}[{node.name}]")
-            for iname, src in node.inputs.items():
-                lines.append(f"    {src.replace('-', '_')} -->|{iname}| {nid}")
-    click.echo("\n".join(lines))
+    click.echo(pipeline_diagram(topn_pipeline(resolve_model(model_spec), name=model_spec)))

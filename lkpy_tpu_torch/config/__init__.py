@@ -9,8 +9,10 @@ src/lenskit/schemas/settings.py:218 ``LenskitSettings``): the same
 ``lkpy-tpu.local.toml`` at the configuration root), the same ``LKT_*``
 environment variables and context-local :func:`configure` overrides, so one
 file configures both packages.  Read by the ALS trainers
-(``training_perf.ladder_ratio``) and by batch serving (``serving``).  The
-JAX package's compile-cache machinery has no counterpart here.
+(``training_perf.ladder_ratio``), by batch serving (``serving``) and by the
+kernel build (``compile_cache.dir``): the JAX package's persistent XLA
+cache becomes the directory the port's CUDA kernels are built into
+(:func:`kernel_build_dir`, :func:`ensure_compile_cache`).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ __all__ = [
     "lkpy_tpu_config",
     "locate_configuration_root",
     "configure",
+    "ensure_compile_cache",
+    "kernel_build_dir",
     "EmbeddingSizeMixin",
 ]
 
@@ -72,9 +76,10 @@ class PrometheusSettings(BaseModel):
 
 
 class CompileCacheSettings(BaseModel):
-    """The JAX package's persistent XLA compilation cache.  The port has no
-    reader: its CUDA kernels are built once into ``build/lkpy_tpu_torch/``
-    (``ops/_build.py``)."""
+    """The JAX package's persistent XLA compilation cache.  The port reads
+    ``dir`` only, as the directory its CUDA kernels are built into
+    (:func:`kernel_build_dir`); ``enabled`` and ``min_compile_secs`` have
+    no counterpart, since every kernel is built once and kept."""
 
     enabled: bool = True
     dir: str | None = None
@@ -209,6 +214,29 @@ def lkpy_tpu_config() -> Settings:
     if _loaded is None:
         _loaded = load_config()
     return _loaded
+
+
+#: where the kernels build without a setting: ``build/lkpy_tpu_torch`` in
+#: the checkout that holds the package
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lkpy_tpu_torch"
+
+
+def kernel_build_dir() -> Path:
+    """The directory the port's CUDA kernels are built into
+    (:mod:`lkpy_tpu_torch.ops._build`): ``compile_cache.dir`` where set,
+    else ``$LKT_CACHE_DIR``, else :data:`DEFAULT_BUILD_DIR`."""
+    cache_dir = lkpy_tpu_config().compile_cache.dir or os.environ.get("LKT_CACHE_DIR")
+    return Path(cache_dir) if cache_dir else DEFAULT_BUILD_DIR
+
+
+def ensure_compile_cache() -> Path:
+    """The counterpart of the JAX package's ``ensure_compile_cache``: make
+    the kernel build directory (:func:`kernel_build_dir`) and return it.
+    Safe to call again; a later :func:`configure` of ``compile_cache.dir``
+    takes effect at the next call and the next kernel build."""
+    path = kernel_build_dir()
+    path.mkdir(parents=True, exist_ok=True)
+    return path
 
 
 @contextmanager

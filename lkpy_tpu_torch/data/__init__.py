@@ -1,11 +1,12 @@
 """
 The port's data layer: vocabularies, item lists and collections, CSR
 matrices, datasets with entity attributes, their builder and their Parquet
-storage, the MovieLens loaders and the dict flattening helpers (port of
-``lkpy_tpu.data``).
+storage, the MovieLens, Amazon, Steam and MS Web loaders, the dict
+flattening helpers and ``BatchedRange`` (port of ``lkpy_tpu.data``).
 """
 
 from lkpy_tpu_torch.data.adapt import from_interactions_df, normalize_interactions_df
+from lkpy_tpu_torch.data.batches import BatchedRange
 from lkpy_tpu_torch.data.builder import DatasetBuilder
 from lkpy_tpu_torch.data.collection import (
     ArrayTopNILC,
@@ -29,6 +30,7 @@ from lkpy_tpu_torch.data.matrix import COO, CSR
 from lkpy_tpu_torch.data.movielens import load_movielens, load_movielens_df
 from lkpy_tpu_torch.data.query import QueryInput, QueryItemSource, RecQuery
 from lkpy_tpu_torch.data.schema import AttrLayout, ColumnSpec, DataSchema, EntitySchema, RelationshipSchema
+from lkpy_tpu_torch.data.sources import load_amazon_ratings, load_ms_web, load_steam
 from lkpy_tpu_torch.data.types import ID, NPID, FeedbackType
 from lkpy_tpu_torch.data.vocab import Vocabulary
 from lkpy_tpu_torch.diagnostics import FieldError

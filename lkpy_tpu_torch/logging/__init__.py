@@ -2,10 +2,10 @@
 Structured logging, progress reporting and task tracking (port of
 ``lkpy_tpu/logging``; reference: src/lenskit/logging/): key-value loggers
 (``get_logger``) and their set-up (``LoggingConfig``), TRACE-level tracing,
-progress bars, stopwatches, resource and energy measurement, and
-hierarchical ``Task`` records; :mod:`lkpy_tpu_torch.logging.multiprocess`
-relays worker processes' log records to a monitor.  The JAX package's
-Jupyter progress backend is not ported yet.
+progress bars (Rich, or ipywidgets in a notebook), stopwatches, resource
+and energy measurement, and hierarchical ``Task`` records;
+:mod:`lkpy_tpu_torch.logging.multiprocess` relays worker processes' log
+records to a monitor.
 """
 
 from lkpy_tpu_torch.logging.logger import LKLogger, LoggingConfig, basic_logging, get_logger, notebook_logging

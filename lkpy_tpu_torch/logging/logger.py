@@ -162,8 +162,7 @@ def notebook_logging(level: int = logging.INFO) -> None:
     """One-call logging + progress setup for notebooks
     (reference: logging/_config.py:66 ``notebook_logging``): applies a
     console logging config at ``level`` and selects the Jupyter progress
-    backend, which the port does not have yet: until it does, progress
-    under ``"notebook"`` reports nothing."""
+    backend."""
     from lkpy_tpu_torch.logging.progress import set_progress_impl
 
     cfg = LoggingConfig()

@@ -21,10 +21,18 @@ device, whose stream differs from ``jax.random``'s (``load_parameters``
 takes another trainer's tables).  Negatives and the WARP misranked search
 run on the device (:mod:`lkpy_tpu_torch.ops.sampling`); convolution layers
 go through :mod:`lkpy_tpu_torch.ops.graph`.
+
+With ``TrainingOptions(mesh=)`` the tables are row-sharded over the mesh's
+``model`` slots and each batch is split over its ``data`` slots
+(:mod:`lkpy_tpu_torch.parallel.gradient`): the initial tables and each
+step's negatives are drawn on the first slot exactly as without a mesh, so
+a sharded run equals the unsharded one up to the order of its sums.
 """
 
 from __future__ import annotations
 
+import math
+from functools import partial
 from typing import Literal
 
 import numpy as np
@@ -38,6 +46,7 @@ from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabul
 from lkpy_tpu_torch.ops.graph import propagate, sorted_conv
 from lkpy_tpu_torch.ops.sampling import DeviceCSRIndex, sample_negatives
 from lkpy_tpu_torch.ops.sparse import DeviceCOO
+from lkpy_tpu_torch.parallel.gradient import leaves, place_tree, sharded_step_loss, take_rows, whole
 from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.random import int_seed
 from lkpy_tpu_torch.training import ModelTrainer, TrainingOptions, UsesTrainer
@@ -140,11 +149,13 @@ def init_params(
 
 def model_scores(params, users, items, *, embeds=None):
     """Score user/item pairs: ``users`` (B,), ``items`` (B,) or (B, N).
-    Returns the scores and the squared norms of the rows that made them."""
+    Returns the scores and the squared norms of the rows that made them.
+    The tables may be row-sharded (:func:`~lkpy_tpu_torch.parallel.
+    gradient.take_rows`); the rows come to ``users``' device."""
     u_embed = embeds[0] if embeds is not None else params["u_embed"]
     i_embed = embeds[1] if embeds is not None else params["i_embed"]
-    ue = u_embed[users]  # (B, k)
-    ie = i_embed[items]  # (B, k) or (B, N, k)
+    ue = take_rows(u_embed, users)  # (B, k)
+    ie = take_rows(i_embed, items)  # (B, k) or (B, N, k)
     wide = ie.dim() == 3
     if wide:
         score = torch.einsum("bk,bnk->bn", ue, ie)
@@ -153,13 +164,13 @@ def model_scores(params, users, items, *, embeds=None):
         score = torch.sum(ue * ie, dim=-1)
         norm = torch.sum(ue * ue, dim=-1) + torch.sum(ie * ie, dim=-1)
     if "u_bias" in params:
-        ub = params["u_bias"][users]
+        ub = take_rows(params["u_bias"], users)
         if wide:
             ub = ub[:, None]
         score = score + ub
         norm = norm + ub**2
     if "i_bias" in params:
-        ib = params["i_bias"][items]
+        ib = take_rows(params["i_bias"], items)
         score = score + ib
         norm = norm + ib**2
     return score, norm
@@ -305,9 +316,22 @@ class FlexMFImplicitScorer(FlexMFScorerBase):
 
 # ---------------------------------------------------------------------------
 # trainers
+def part_mean(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x``'s share of a mean over a batch of ``rows`` examples: its sum
+    over the batch's count (``torch.mean(x)`` when ``x`` is the whole
+    batch, a data slot's part of it when ``x`` is the slot's block)."""
+    return x.sum() / (rows * math.prod(x.shape[1:]))
+
+
 class FlexMFTrainerBase(ModelTrainer):
     """The batching and optimizer loop (reference: _training.py:39), which
-    LightGCN's trainer shares."""
+    LightGCN's trainer shares.
+
+    A step draws the batch's negatives (:meth:`draw_negatives`) and any
+    propagated tables (:meth:`step_embeds`) once, then takes the loss of
+    the batch (:meth:`block_loss`): whole, or with a mesh as the sum of each
+    ``data`` slot's part (:func:`~lkpy_tpu_torch.parallel.gradient.
+    sharded_step_loss`), for one backward pass and one optimizer step."""
 
     def __init__(self, component: FlexMFScorerBase, data: Dataset, options: TrainingOptions):
         self.component = component
@@ -315,6 +339,7 @@ class FlexMFTrainerBase(ModelTrainer):
         # the JAX package's order: the generator, then the integer seed
         # (drawn from it when the options hold a generator)
         self.rng = options.random_generator()
+        self.mesh = options.mesh
         self.device = options.configured_device()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int_seed(options.rng))
@@ -324,11 +349,13 @@ class FlexMFTrainerBase(ModelTrainer):
         self.n_items = data.item_count
         self.epochs_trained = 0
         self.prepare_data(data)
+        # drawn whole on the first slot, then split: the same tables with
+        # a mesh and without
         self.load_parameters(self.init_model())
 
     def make_optimizer(self) -> torch.optim.Optimizer:
         cfg = self.config
-        params = list(self.params.values())
+        params = leaves(self.params)
         if cfg.reg_method == "AdamW":
             return torch.optim.AdamW(params, lr=cfg.learning_rate, weight_decay=cfg.regularization, fused=True)
         return torch.optim.Adam(params, lr=cfg.learning_rate, fused=True)
@@ -345,9 +372,26 @@ class FlexMFTrainerBase(ModelTrainer):
     def init_model(self) -> dict[str, torch.Tensor]:
         raise NotImplementedError
 
-    def batch_loss(self, *batch) -> torch.Tensor:
-        """The loss of one batch of examples."""
+    def draw_negatives(self, users: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The batch's negatives, drawn once for the whole batch."""
+        return ()
+
+    def step_embeds(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The step's propagated tables on the first slot, or None."""
+        return None
+
+    def block_loss(self, embeds, rows: int, *block) -> torch.Tensor:
+        """A block's part of the loss of a batch of ``rows`` examples: the
+        block's columns, its negatives after them."""
         raise NotImplementedError
+
+    def batch_loss(self, *cols) -> torch.Tensor:
+        """The loss of one batch of examples, its negatives drawn here."""
+        cols = cols + self.draw_negatives(cols[0])
+        loss = partial(self.block_loss, self.step_embeds(), cols[0].shape[0])
+        if self.mesh is None:
+            return loss(*cols)
+        return sharded_step_loss(self.mesh, loss, cols)
 
     def batch_columns(self) -> tuple[torch.Tensor, ...]:
         """The example columns a batch takes its rows of."""
@@ -355,10 +399,14 @@ class FlexMFTrainerBase(ModelTrainer):
 
     def _epoch_perm(self):
         """The epoch's shuffled (and tail-padded) example order, the JAX
-        package's call sequence on the same generator."""
+        package's call sequence on the same generator; with a mesh the
+        batch rounds down to a multiple of the ``data`` slots, as there."""
         n = self.examples.nnz
         perm = self.rng.permutation(n)
         bs = min(self.config.batch_size, n)
+        if self.mesh is not None:
+            d = self.mesh.shape["data"]
+            bs = max(d, bs - bs % d)
         tail = n % bs
         if tail:
             perm = np.concatenate([perm, self.rng.choice(n, size=bs - tail)])
@@ -381,28 +429,31 @@ class FlexMFTrainerBase(ModelTrainer):
         self.epochs_trained += 1
         return float(total) / n_steps if n_steps else 0.0
 
+    def whole_params(self) -> dict[str, torch.Tensor]:
+        """The tables, each whole on the first slot (differentiable)."""
+        return {k: whole(v, self.device) for k, v in self.params.items()}
+
     def finalize(self):
         with torch.no_grad():
             self.component.params = {k: v.detach().clone() for k, v in self.final_params().items()}
 
     def final_params(self) -> dict[str, torch.Tensor]:
-        return self.params
+        return self.whole_params()
 
     def get_parameters(self) -> dict[str, np.ndarray]:
-        return {k: v.detach().cpu().numpy() for k, v in self.params.items()}
+        """The tables as whole NumPy arrays, sharded or not: copies, which
+        later steps leave as they are (the JAX package's are immutable)."""
+        with torch.no_grad():
+            return {k: v.to("cpu", copy=True).numpy() for k, v in self.whole_params().items()}
 
     def load_parameters(self, state: dict[str, object]) -> None:
         """Install tables (arrays, such as the JAX trainer's
-        ``get_parameters()``, or tensors) on the training device and start
-        the optimizer afresh."""
-        self.params = {
-            k: torch.as_tensor(v if isinstance(v, torch.Tensor) else np.array(v, dtype=np.float32))
-            .detach()
-            .to(self.device, torch.float32)
-            .clone()
-            .requires_grad_()
-            for k, v in state.items()
+        ``get_parameters()``, or tensors) on the training device, or on the
+        mesh's shards, and start the optimizer afresh."""
+        tables = {
+            k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.array(v, dtype=np.float32)) for k, v in state.items()
         }
+        self.params = place_tree(self.mesh, tables, {self.n_users, self.n_items}, self.device)
         self.opt = self.make_optimizer()
 
 
@@ -421,11 +472,11 @@ class FlexMFExplicitTrainer(FlexMFTrainerBase):
     def batch_columns(self):
         return (self.examples.row, self.examples.col, self.examples.values)
 
-    def batch_loss(self, users, items, ratings):
+    def block_loss(self, embeds, rows, users, items, ratings):
         pred, norm = model_scores(self.params, users, items)
-        loss = torch.mean((pred - ratings) ** 2)
+        loss = part_mean((pred - ratings) ** 2, rows)
         if self.explicit_norm:
-            loss = loss + self.config.regularization * torch.mean(norm)
+            loss = loss + self.config.regularization * part_mean(norm, rows)
         return loss
 
 
@@ -449,35 +500,44 @@ class FlexMFImplicitTrainer(FlexMFTrainerBase):
             user_bias = cfg.loss == "logistic"
         return init_params(self.generator, self.n_users, self.n_items, cfg.embedding_size, user_bias, cfg.item_bias)
 
-    def final_params(self):
+    def step_embeds(self):
+        """The convolution layers' tables, propagated on the first slot over
+        the whole tables (gathered from their shards with a mesh)."""
         if self.conv is None:
-            return self.params
-        u_eff, i_eff = lightgcn_propagate(self.params, self.conv, self.config.convolution_layers)
-        return self.params | {"u_embed": u_eff, "i_embed": i_eff}
+            return None
+        return lightgcn_propagate(self.whole_params(), self.conv, self.config.convolution_layers)
 
-    def batch_loss(self, users, pos):
+    def final_params(self):
+        params = self.whole_params()
+        if self.conv is None:
+            return params
+        u_eff, i_eff = lightgcn_propagate(params, self.conv, self.config.convolution_layers)
+        return params | {"u_embed": u_eff, "i_embed": i_eff}
+
+    def draw_negatives(self, users):
         cfg = self.config
-        params = self.params
-        embeds = None
-        if self.conv is not None:
-            embeds = lightgcn_propagate(params, self.conv, cfg.convolution_layers)
-        pos_pred, pos_norm = model_scores(params, users, pos, embeds=embeds)
         strategy = cfg.selected_negative_strategy()
         if strategy == "misranked":
-            negs = sample_negatives(self.generator, self.neg_index, users, n=cfg.warp_candidates, weighting="uniform")
-            cand_scores, cand_norms = model_scores(params, users, negs, embeds=embeds)
-            neg_pred, neg_norm, weights = warp_negatives(cand_scores, cand_norms, pos_pred, self.n_items)
-            loss = torch.mean(-F.logsigmoid(pos_pred - neg_pred) * weights)
+            return (sample_negatives(self.generator, self.neg_index, users, n=cfg.warp_candidates, weighting="uniform"),)
+        weighting = "popularity" if strategy == "popular" else "uniform"
+        return (sample_negatives(self.generator, self.neg_index, users, n=cfg.negative_count, weighting=weighting),)
+
+    def block_loss(self, embeds, rows, users, pos, negs):
+        cfg = self.config
+        params = self.params
+        pos_pred, pos_norm = model_scores(params, users, pos, embeds=embeds)
+        neg_scores, neg_norms = model_scores(params, users, negs, embeds=embeds)
+        if cfg.selected_negative_strategy() == "misranked":
+            neg_pred, neg_norm, weights = warp_negatives(neg_scores, neg_norms, pos_pred, self.n_items)
+            loss = part_mean(-F.logsigmoid(pos_pred - neg_pred) * weights, rows)
         else:
-            weighting = "popularity" if strategy == "popular" else "uniform"
-            negs = sample_negatives(self.generator, self.neg_index, users, n=cfg.negative_count, weighting=weighting)
-            neg_pred, neg_norm = model_scores(params, users, negs, embeds=embeds)
+            neg_pred, neg_norm = neg_scores, neg_norms
             if cfg.loss == "logistic":
                 pos_lp = -F.logsigmoid(pos_pred) * cfg.positive_weight
                 neg_lp = -F.logsigmoid(-neg_pred)
-                loss = (torch.sum(pos_lp) + torch.sum(neg_lp)) / (pos_lp.numel() + neg_lp.numel())
+                loss = (torch.sum(pos_lp) + torch.sum(neg_lp)) / (rows * (1 + neg_lp.shape[1]))
             else:  # pairwise / BPR
-                loss = torch.mean(-F.logsigmoid(pos_pred[:, None] - neg_pred))
+                loss = part_mean(-F.logsigmoid(pos_pred[:, None] - neg_pred), rows)
         if self.explicit_norm:
-            loss = loss + cfg.regularization * 0.5 * (torch.mean(pos_norm) + torch.mean(neg_norm))
+            loss = loss + cfg.regularization * 0.5 * (part_mean(pos_norm, rows) + part_mean(neg_norm, rows))
         return loss

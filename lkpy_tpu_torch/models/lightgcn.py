@@ -14,7 +14,10 @@ together) and one backward pass.  The JAX package splits large graphs'
 steps into two programs to get round a TPU compiler failure; the gradient
 is the sum of the same two terms.  The epoch loop, the generators and the
 parameter container are FlexMF's (:class:`lkpy_tpu_torch.models.flexmf.
-FlexMFTrainerBase`).
+FlexMFTrainerBase`), and so is the mesh: with ``TrainingOptions(mesh=)``
+the tables are row-sharded over the ``model`` slots, each step propagates
+on the first slot over the tables gathered from their shards, and the
+batch splits over the ``data`` slots.
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ from pydantic import AliasChoices, BaseModel, Field, model_validator
 
 from lkpy_tpu_torch.config import EmbeddingSizeMixin
 from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
-from lkpy_tpu_torch.models.flexmf import FlexMFTrainerBase, _f32, init_params
+from lkpy_tpu_torch.models.flexmf import FlexMFTrainerBase, _f32, init_params, part_mean
 from lkpy_tpu_torch.ops.graph import propagate, sorted_conv
 from lkpy_tpu_torch.ops.sampling import DeviceCSRIndex, sample_negatives
 from lkpy_tpu_torch.ops.sparse import DeviceCOO
+from lkpy_tpu_torch.parallel.gradient import leaves, take_rows
 from lkpy_tpu_torch.pipeline.components import Component
 from lkpy_tpu_torch.training import UsesTrainer
 
@@ -150,33 +154,42 @@ class LightGCNTrainer(FlexMFTrainerBase):
         return init_params(self.generator, self.n_users, self.n_items, self.config.embedding_size, False, False)
 
     def make_optimizer(self) -> torch.optim.Optimizer:
-        return torch.optim.Adam(list(self.params.values()), lr=self.config.learning_rate, fused=True)
+        return torch.optim.Adam(leaves(self.params), lr=self.config.learning_rate, fused=True)
 
-    def batch_loss(self, users, pos) -> torch.Tensor:
-        """The loss of one batch: BPR or logistic on the propagated
-        embeddings, plus the L2 penalty on the batch's ego embeddings."""
+    def step_embeds(self):
+        """The propagated tables, on the first slot over the whole tables
+        (gathered from their shards with a mesh)."""
+        params = self.whole_params()
+        return propagate(params["u_embed"], params["i_embed"], self.conv, self.blend)
+
+    def draw_negatives(self, users):
+        return (sample_negatives(self.generator, self.neg_index, users, n=1)[:, 0],)
+
+    def block_loss(self, embeds, rows, users, pos, negs) -> torch.Tensor:
+        """A block's part of the batch's loss: BPR or logistic on the
+        propagated embeddings, plus the L2 penalty on the batch's ego
+        embeddings, each divided by the batch's size ``rows``."""
         cfg = self.config
         params = self.params
-        u_eff, i_eff = propagate(params["u_embed"], params["i_embed"], self.conv, self.blend)
-        negs = sample_negatives(self.generator, self.neg_index, users, n=1)[:, 0]
-        ue = u_eff[users]
-        pos_s = torch.sum(ue * i_eff[pos], dim=-1)
-        neg_s = torch.sum(ue * i_eff[negs], dim=-1)
+        u_eff, i_eff = embeds
+        ue = take_rows(u_eff, users)
+        pos_s = torch.sum(ue * take_rows(i_eff, pos), dim=-1)
+        neg_s = torch.sum(ue * take_rows(i_eff, negs), dim=-1)
         if cfg.loss == "pairwise":
-            loss = -torch.mean(F.logsigmoid(pos_s - neg_s))
+            loss = -part_mean(F.logsigmoid(pos_s - neg_s), rows)
         else:
-            loss = -0.5 * (torch.mean(F.logsigmoid(pos_s)) + torch.mean(F.logsigmoid(-neg_s)))
+            loss = -0.5 * (part_mean(F.logsigmoid(pos_s), rows) + part_mean(F.logsigmoid(-neg_s), rows))
         if cfg.regularization:
             n0 = (
-                torch.sum(params["u_embed"][users] ** 2)
-                + torch.sum(params["i_embed"][pos] ** 2)
-                + torch.sum(params["i_embed"][negs] ** 2)
-            ) / users.shape[0]
+                torch.sum(take_rows(params["u_embed"], users) ** 2)
+                + torch.sum(take_rows(params["i_embed"], pos) ** 2)
+                + torch.sum(take_rows(params["i_embed"], negs) ** 2)
+            ) / rows
             loss = loss + cfg.regularization * 0.5 * n0
         return loss
 
     def finalize(self):
         with torch.no_grad():
-            u_eff, i_eff = propagate(self.params["u_embed"], self.params["i_embed"], self.conv, self.blend)
+            u_eff, i_eff = self.step_embeds()
         self.component.user_embeddings = u_eff
         self.component.item_embeddings = i_eff

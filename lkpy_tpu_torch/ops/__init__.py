@@ -7,6 +7,17 @@ PyTorch version beside it and counts the kernel's launches.
 """
 
 from lkpy_tpu_torch.ops.segment import segment_count, segment_mean, segment_sum
+from lkpy_tpu_torch.ops.sparse import DeviceCOO, PaddedRowMatrix, bucket_rows, pad_rows
 from lkpy_tpu_torch.ops.topk import masked_top_k, top_n_indices
 
-__all__ = ["masked_top_k", "segment_count", "segment_mean", "segment_sum", "top_n_indices"]
+__all__ = [
+    "DeviceCOO",
+    "PaddedRowMatrix",
+    "bucket_rows",
+    "masked_top_k",
+    "pad_rows",
+    "segment_count",
+    "segment_mean",
+    "segment_sum",
+    "top_n_indices",
+]

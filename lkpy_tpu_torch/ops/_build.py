@@ -2,8 +2,10 @@
 Build the port's CUDA kernels at first use.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
-plain C interface, ``build/lkpy_tpu_torch/lib<name>-<hash>.so`` under the
-repository root, and is loaded with :mod:`ctypes`.  The file name carries a
+plain C interface, ``lib<name>-<hash>.so`` in the kernel build directory
+(:func:`lkpy_tpu_torch.config.kernel_build_dir`: ``compile_cache.dir`` or
+``$LKT_CACHE_DIR`` where set, else ``build/lkpy_tpu_torch/`` under the
+repository root), and is loaded with :mod:`ctypes`.  The file name carries a
 hash of the source, of every header under ``csrc/`` that it includes (by
 ``#include "..."``, directly or through another such header) and of the
 flags, so an edited source or header builds anew and an unchanged one is
@@ -24,10 +26,11 @@ import subprocess
 import threading
 from pathlib import Path
 
+from lkpy_tpu_torch.config import kernel_build_dir
+
 __all__ = ["NVCC_FLAGS", "library_path", "load", "source_files", "sources"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build" / "lkpy_tpu_torch"
 
 #: sm_90a keeps Hopper-only instructions available
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -82,14 +85,14 @@ def library_path(name: str) -> Path:
     for path in source_files(name):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return kernel_build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     # a quoted include is looked up beside the file that names it, so csrc's headers need no -I
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]

@@ -18,9 +18,10 @@ src[idx]``, in edge chunks from :data:`_SPMM_CHUNK_MIN` edges) is the
 product written out, which the tests hold the Function against.
 
 The dense bf16 adjacency (:func:`build_dense_adjacency`,
-:func:`propagate_dense` with :class:`_AdjMM`/:class:`_AdjTMM`) is ported as
-the JAX package has it; :func:`dense_adjacency_eligible` is False on every
-device, as the JAX package resolves it off a TPU, so no trainer takes it.
+:func:`propagate_dense` with :class:`_AdjMM`/:class:`_AdjTMM`), whole or
+in user-row blocks over a mesh's ``model`` slots, is ported as the JAX
+package has it; :func:`dense_adjacency_eligible` is False on every device,
+as the JAX package resolves it off a TPU, so no trainer takes it.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.parallel.ops import Sharded, shard_rows
 
 __all__ = [
     "build_dense_adjacency",
@@ -180,34 +182,52 @@ class _AdjTMM(torch.autograd.Function):
 def propagate_dense(u, i, adj, blend):
     """LightGCN propagation with a dense bf16 adjacency whose dims are at
     least the table sizes: each direction one product with float32 sums.
-    The tables pad up to the adjacency's dims and the results slice back."""
+    The tables pad up to the adjacency's dims and the results slice back.
+
+    ``adj`` may be the user-row blocks of :func:`build_dense_adjacency`
+    over a mesh's ``model`` slots: ``adj_s @ i`` is then taken on each
+    slot, and ``adjᵀ @ u`` is the sum of each slot's ``adj_sᵀ @ u_s``, taken
+    on the first slot, where the results gather."""
     nu, ni = u.shape[0], i.shape[0]
-    nu_al, ni_al = adj.shape
+    blocks = adj.parts if isinstance(adj, Sharded) else (adj,)
+    nu_al, ni_al = sum(b.shape[0] for b in blocks), blocks[0].shape[1]
+    home = u.device
     u = torch.nn.functional.pad(u, (0, 0, 0, nu_al - nu))
     i = torch.nn.functional.pad(i, (0, 0, 0, ni_al - ni))
     w = _blend(blend)
     u_acc = u * w[0]
     i_acc = i * w[0]
+    bounds = np.cumsum([0] + [b.shape[0] for b in blocks])
     for l in range(1, len(w)):
-        u, i = _AdjMM.apply(adj, i), _AdjTMM.apply(adj, u)
+        u_new = torch.cat([_AdjMM.apply(b, i.to(b.device)).to(home) for b in blocks])
+        i = sum(_AdjTMM.apply(b, u[lo:hi].to(b.device)).to(home) for b, lo, hi in zip(blocks, bounds, bounds[1:]))
+        u = u_new
         u_acc = u_acc + u * w[l]
         i_acc = i_acc + i * w[l]
     return u_acc[:nu], i_acc[:ni]
 
 
-def dense_adjacency_eligible(nnz: int, n_users: int, n_items: int) -> bool:
+def dense_adjacency_eligible(nnz: int, n_users: int, n_items: int, mesh=None) -> bool:
     """Whether a graph propagates through the dense bf16 adjacency: never.
     The JAX package takes it only on a TPU backend (from 2 M edges, within
-    8 GiB a device), so off a TPU it propagates by sparse products, as the
-    port does on every device."""
+    8 GiB a device, times the ``model`` slots of ``mesh``), so off a TPU it
+    propagates by sparse products, as the port does on every device."""
     return False
 
 
-def build_dense_adjacency(rows, cols, vals, n_users: int, n_items: int) -> torch.Tensor:
+def build_dense_adjacency(rows, cols, vals, n_users: int, n_items: int, mesh=None):
     """The dense bf16 adjacency on the edges' device, its dims rounded up to
-    the JAX package's tile (16 × 128)."""
-    nu_al = -(-n_users // 16) * 16
+    the JAX package's tile (16 × 128).
+
+    With ``mesh``, its user rows (aligned to 16 × ``model``, as the JAX
+    package aligns them) split over the ``model`` slots: a
+    :class:`~lkpy_tpu_torch.parallel.ops.Sharded` whose part on each slot
+    is a ``(nu_al / model, ni_al)`` block."""
+    nu_mult = 16 * (mesh.shape["model"] if mesh is not None else 1)
+    nu_al = -(-n_users // nu_mult) * nu_mult
     ni_al = -(-n_items // 128) * 128
     adj = torch.zeros((nu_al, ni_al), dtype=torch.bfloat16, device=rows.device)
     adj[rows.long(), cols.long()] = vals.to(torch.bfloat16)
-    return adj
+    if mesh is None:
+        return adj
+    return shard_rows(adj, mesh, "model")

@@ -2,16 +2,18 @@
 Pipeline abstraction: DAGs of recommendation components (port of
 ``lkpy_tpu.pipeline``; reference: src/lenskit/pipeline/__init__.py).
 
-The profiler (:mod:`~lkpy_tpu_torch.pipeline.profiling`) and the
-spec-file loader of ``pipelines/*.toml``
-(:mod:`~lkpy_tpu_torch.pipeline.specfile`, imported on its own) are
-ported; the JAX package's pipeline diagram and cache are not yet.
+With the profiler (:mod:`~lkpy_tpu_torch.pipeline.profiling`), the
+Mermaid diagram (:func:`pipeline_diagram`), the component cache
+(:class:`PipelineCache`) and the spec-file loader of ``pipelines/*.toml``
+(:mod:`~lkpy_tpu_torch.pipeline.specfile`, imported on its own).
 """
 
 from lkpy_tpu_torch.pipeline.builder import PipelineBuilder
+from lkpy_tpu_torch.pipeline.cache import PipelineCache
 from lkpy_tpu_torch.pipeline.common import RecPipelineBuilder, predict_pipeline, topn_pipeline
-from lkpy_tpu_torch.pipeline.components import Component, component_inputs
+from lkpy_tpu_torch.pipeline.components import Component, component_inputs, component_return_type
 from lkpy_tpu_torch.pipeline.config import PipelineConfig, hash_config
+from lkpy_tpu_torch.pipeline.diagram import pipeline_diagram
 from lkpy_tpu_torch.pipeline.nodes import ComponentNode, FallbackNode, InputNode, LiteralNode, Node
 from lkpy_tpu_torch.pipeline.pipeline import Pipeline, PipelineState
 from lkpy_tpu_torch.pipeline.profiling import PipelineProfiler, summarize_profile
@@ -25,12 +27,15 @@ __all__ = [
     "Node",
     "Pipeline",
     "PipelineBuilder",
+    "PipelineCache",
     "PipelineConfig",
     "PipelineProfiler",
     "PipelineState",
     "RecPipelineBuilder",
     "component_inputs",
+    "component_return_type",
     "hash_config",
+    "pipeline_diagram",
     "predict_pipeline",
     "summarize_profile",
     "topn_pipeline",

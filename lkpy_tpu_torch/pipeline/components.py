@@ -20,7 +20,7 @@ from typing import Any, ClassVar, get_type_hints
 
 from pydantic import BaseModel, TypeAdapter
 
-__all__ = ["Component", "component_inputs", "instantiate_component"]
+__all__ = ["Component", "component_inputs", "component_return_type", "instantiate_component"]
 
 
 class Component:
@@ -117,6 +117,17 @@ def component_inputs(component: Any) -> dict[str, type | None]:
             continue
         inputs[name] = hints.get(name)
     return inputs
+
+
+def component_return_type(component: Any) -> type | None:
+    """The annotated return type of a component's call, or None where it
+    has none or it cannot be resolved (the JAX package's
+    ``pipeline/components.py:119``)."""
+    fn = component.__call__ if not inspect.isfunction(component) else component
+    try:
+        return get_type_hints(fn).get("return")
+    except (NameError, TypeError):
+        return None
 
 
 def class_path(obj: type) -> str:

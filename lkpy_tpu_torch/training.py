@@ -11,7 +11,10 @@ means the card (:func:`lkpy_tpu_torch.resolve_device`).
 trains over a grid of device slots instead: the ALS trainers split each
 chunk's rows over its ``data`` slots and the item-kNN build shards the
 similarity rows over its ``model`` slots, the tables on its first slot;
-the other trainers do not read it yet.
+the FlexMF and LightGCN trainers row-shard their tables over the ``model``
+slots and split each batch over the ``data`` slots
+(:mod:`lkpy_tpu_torch.parallel.gradient`); the other trainers train on
+its first slot.
 ``UsesTrainer`` reports its epochs through
 :func:`lkpy_tpu_torch.logging.item_progress`.
 """
@@ -44,8 +47,8 @@ class TrainingOptions:
             ``"cpu"`` the CPU.
         rng: seed material for training randomness.
         mesh: a :class:`~lkpy_tpu_torch.parallel.mesh.Mesh` to train over
-            (ALS, item kNN); training then runs on its slots and ``device``
-            is not read.
+            (ALS, item kNN, FlexMF, LightGCN); training then runs on its
+            slots and ``device`` is not read.
         environment: local environment overrides consulted before
             ``os.environ`` by :meth:`env_var` / :meth:`env_flag`.
     """

@@ -7,12 +7,14 @@ Builds the kernels (one ``nvcc`` per source, together), makes
 ``chip_smoke.py``'s data (bench.py's synthetic interactions and split,
 138,000 users x 27,000 items, seed 42), trains the unsharded
 ``ImplicitMFScorer(features=64, epochs=10)`` it is held against, times its
-epochs, builds the unsharded item-kNN table (k = 64), and runs
-``mesh_phase``: ALS training and fold-in serving at ``data = 2``, retrieval
-and the kNN build at ``model = 2``, two processes of
-``distributed_recommend`` over gloo, and ``dryrun_multichip(8)``, with every
-check of that phase.  The unsharded tables stand in for the pipeline
-phase's.  Prints the card's name and power limit first and last.
+epochs, builds the unsharded item-kNN table (k = 64), runs ``gradient_phase``
+(whose first FlexMF-BPR and LightGCN epochs the mesh's are held against) and
+then ``mesh_phase``: ALS training and fold-in serving at ``data = 2``,
+retrieval and the kNN build at ``model = 2``, FlexMF-BPR at ``data = 2`` and
+LightGCN at ``model = 2``, two processes of ``distributed_recommend`` over
+gloo, and ``dryrun_multichip(8)``, with every check of that phase.  The
+unsharded tables stand in for the pipeline phase's.  Prints the card's name
+and power limit first and last.
 """
 
 from __future__ import annotations
@@ -79,6 +81,9 @@ def main() -> int:
     cs.log(f"unsharded: training, epochs {[round(x * 1e3, 3) for x in times]} ms, NDCG@10 {nd:.4f}, kNN table ({time.perf_counter() - t:.1f}s)")
     split = dict(ds=ds, scorer=scorer, test_u=test_u, test_i=test_i, ndcg=nd, epoch_ms=float(np.mean(times[1:])) * 1e3,
                  knn_table=table, pipeline_scorer=folding)  # fmt: skip
+    t = time.perf_counter()
+    cs.gradient_phase(dev, split)
+    cs.log(f"phase gradient: {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths = cs.mesh_phase(dev, split)
     cs.log(f"phase mesh: {time.perf_counter() - t:.1f}s")

@@ -206,8 +206,15 @@ def test_pipeline_expand_model_and_diagram_equal():
     assert same_config(json.loads(got), json.loads(want))
     got, want = both(["pipeline", "expand", "-f", ROOT / "pipelines" / "als-implicit.toml"])
     assert same_config(json.loads(got), json.loads(want))
-    got, want = both(["pipeline", "diagram", "-m", "pop"])
-    assert got == want and got.startswith("flowchart TD")
+    # the port's command prints pipeline_diagram's Mermaid text, which is
+    # the JAX package's pipeline_diagram on the same pipeline
+    from lkpy_tpu.cli.common import resolve_model as jax_resolve_model
+    from lkpy_tpu.pipeline import pipeline_diagram as jax_pipeline_diagram
+    from lkpy_tpu.pipeline import topn_pipeline as jax_topn_pipeline
+
+    got = run(cli, CPU + ["pipeline", "diagram", "-m", "pop"])
+    want = jax_pipeline_diagram(jax_topn_pipeline(jax_resolve_model("pop"), name="pop")) + "\n"
+    assert got == want and got.startswith("flowchart TD") and "<i>PopScorer</i>" in got
     res = CliRunner().invoke(cli, ["pipeline", "expand"])
     assert res.exit_code != 0 and "required" in res.output
 

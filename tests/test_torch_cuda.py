@@ -1226,6 +1226,34 @@ def test_mesh_als_epoch_on_card_equals_unsharded(cuda, mode):
     np.testing.assert_allclose(out["mesh"][2], out["single"][2], rtol=1e-5)
 
 
+@pytest.mark.parametrize("model,spec", [("bpr", {"data": 2}), ("lightgcn", {"model": 2})])
+def test_mesh_gradient_epoch_on_card_matches_cpu(cuda, model, spec, monkeypatch):
+    """One FlexMF-BPR epoch with the batch over two data slots and one
+    LightGCN epoch with the tables over two model slots, both on the card,
+    against the unsharded epoch on the CPU from the same tables and
+    negatives; one fused optimizer steps the slots' leaves."""
+    import lkpy_tpu_torch.models.flexmf as flexmf
+    import lkpy_tpu_torch.models.lightgcn as lightgcn
+    from lkpy_tpu_torch.parallel.ops import Sharded
+
+    monkeypatch.setattr(flexmf, "sample_negatives", _det_negatives)
+    monkeypatch.setattr(lightgcn, "sample_negatives", _det_negatives)
+    ds = _ratings_dataset(np.random.default_rng(45))
+    cfg = {"embedding_size": 16, "batch_size": 512, "epochs": 1}
+    make = (lambda: flexmf.FlexMFImplicitScorer(preset="bpr", **cfg)) if model == "bpr" else (lambda: lightgcn.LightGCNScorer(**cfg))
+    on_cpu = make().create_trainer(ds, TrainingOptions(rng=7, device="cpu"))
+    on_mesh = make().create_trainer(ds, TrainingOptions(rng=7, mesh=_two_slots(cuda, **spec)))
+    on_mesh.load_parameters(on_cpu.get_parameters())
+    parts = [p for t in on_mesh.params.values() for p in t.parts]
+    assert all(isinstance(t, Sharded) for t in on_mesh.params.values()) and all(p.device.type == "cuda" for p in parts)
+    assert len(parts) == len(on_mesh.params) * on_mesh.mesh.shape["model"]
+    want_loss, got_loss = on_cpu.train_epoch(), on_mesh.train_epoch()
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    got, want = on_mesh.get_parameters(), on_cpu.get_parameters()
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-4, err_msg=name)
+
+
 def test_mesh_serving_block_on_card_equals_unsharded(cuda):
     rng = np.random.default_rng(43)
     n_users, k = 300, 32

@@ -262,7 +262,8 @@ def test_multi_device_modules_import_no_jax_or_zmq():
 import importlib, pkgutil, sys
 import lkpy_tpu_torch
 for name in ("lkpy_tpu_torch.parallel", "lkpy_tpu_torch.parallel.als", "lkpy_tpu_torch.parallel.knn",
-             "lkpy_tpu_torch.parallel.dryrun", "lkpy_tpu_torch.batch.distributed", "lkpy_tpu_torch.logging.multiprocess"):
+             "lkpy_tpu_torch.parallel.dryrun", "lkpy_tpu_torch.parallel.gradient", "lkpy_tpu_torch.batch.distributed",
+             "lkpy_tpu_torch.logging.multiprocess"):
     importlib.import_module(name)
 for m in pkgutil.walk_packages(lkpy_tpu_torch.__path__, "lkpy_tpu_torch."):
     importlib.import_module(m.name)

@@ -36,6 +36,7 @@ from lkpy_tpu_torch.data import DatasetBuilder, ItemList, ItemListCollection, Re
 from lkpy_tpu_torch.models import ItemKNNScorer, UserKNNScorer
 from lkpy_tpu_torch.models.knn import ItemKNNConfig, UserKNNConfig
 from lkpy_tpu_torch.pipeline import Pipeline, predict_pipeline, topn_pipeline
+from lkpy_tpu_torch.testing import ScorerTests
 from lkpy_tpu_torch.training import TrainingOptions
 
 torch.set_num_threads(1)
@@ -289,3 +290,14 @@ def test_scorers_run_on_the_card_unless_told_cpu(data, monkeypatch):
     csr = tds.interaction_matrix().csr(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         UserKNNScorer.from_numpy(csr.rowptr, csr.colind, None, tds.users, tds.items)
+
+
+class TestItemKNNImplicitGrid(ScorerTests):
+    """The harness's grid (``lkpy_tpu_torch.testing``) on the CPU, with the
+    JAX package's grid configuration (``tests/models/test_scorer_grid.py``)."""
+
+    component = ItemKNNScorer
+    config = ItemKNNScorer.validate_config({"feedback": "implicit"})
+    can_score = "some"
+    expected_ndcg = 0.10
+    device = "cpu"

@@ -223,6 +223,36 @@ for grad_scorer, data in ((FlexMFImplicitScorer(preset="warp", embedding_size=4,
     grad_pipe = lkpy_tpu_torch.topn_pipeline(grad_scorer, n=5)
     grad_pipe.train(data, TrainingOptions(rng=1, device="cpu"))
     assert recommend(grad_pipe, data.users.ids[:3], n=5).total_items() > 0
+# the gradient family on a mesh, and the dense adjacency's blocks
+import tempfile
+from lkpy_tpu_torch.ops.graph import build_dense_adjacency, propagate_dense
+from lkpy_tpu_torch.parallel import MeshSpec, make_mesh
+import lkpy_tpu_torch.parallel.gradient
+grad_mesh = make_mesh(MeshSpec(data=2, model=2), devices=["cpu"] * 4)
+for grad_scorer in (FlexMFImplicitScorer(preset="bpr", embedding_size=4, epochs=1), LightGCNScorer(embedding_size=4, epochs=1)):
+    grad_scorer.train(ds, TrainingOptions(rng=1, mesh=grad_mesh))
+coo = ds.interaction_matrix().coo_structure()
+adj = build_dense_adjacency(torch.as_tensor(coo.row), torch.as_tensor(coo.col), torch.ones(len(coo.row)), ds.user_count, ds.item_count, mesh=grad_mesh)
+assert propagate_dense(torch.ones(ds.user_count, 2), torch.ones(ds.item_count, 2), adj, [0.5, 0.5])[1].shape == (ds.item_count, 2)
+# the rest of the data and tooling: loaders, accumulators, diagram, cache, build directory, progress, test harness
+import lkpy_tpu_torch.testing, lkpy_tpu_torch.testing.arrays
+from lkpy_tpu_torch.config import ensure_compile_cache, kernel_build_dir
+from lkpy_tpu_torch.data import BatchedRange, load_ms_web
+from lkpy_tpu_torch.data.accum import ValueStatAccumulator
+from lkpy_tpu_torch.logging.progress import item_progress_handle
+from lkpy_tpu_torch.pipeline import PipelineCache, component_return_type, pipeline_diagram
+assert pipeline_diagram(pipe).startswith("flowchart TD") and component_return_type(pipe.node("ranker").component) is ItemList
+assert PipelineCache().get_instance(BiasScorer, {"damping": 2.0}).config.damping == 2.0
+assert list(BatchedRange(5, 2)) == [(0, 2), (2, 4), (4, 5)] and kernel_build_dir().name == "lkpy_tpu_torch"
+with tempfile.TemporaryDirectory() as d:
+    with open(d + "/msweb.data", "w") as f:
+        f.write('A,1000,1,"a","/a"\\nC,"10001",10001\\nV,1000,1\\n')
+    assert load_ms_web(d + "/msweb.data").interaction_count == 1
+with item_progress_handle("x", 1) as bar:
+    bar.update()
+acc = ValueStatAccumulator()
+acc.add(1.0)
+assert acc.accumulate()["count"] == 1
 # the data layer and runtime core: storage, the lazy dataset, settings, checkpoints, schema files, MTArray,
 # stochastic ranking
 import tempfile

@@ -31,6 +31,7 @@ from lkpy_tpu_torch.models.als import ImplicitMFScorer
 from lkpy_tpu_torch.ops import als as torch_als
 from lkpy_tpu_torch.ops import sparse as torch_sparse
 from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
+from lkpy_tpu_torch.testing import ScorerTests
 from lkpy_tpu_torch.training import TrainingOptions
 
 torch.set_num_threads(1)
@@ -327,3 +328,14 @@ def test_global_rng():
         assert torch_random.random_generator().integers(1 << 30) == jax_random.random_generator().integers(1 << 30)
     finally:
         torch_random._global_seed, jax_random._global_seed = saved
+
+
+class TestImplicitMFGrid(ScorerTests):
+    """The harness's grid (``lkpy_tpu_torch.testing``) on the CPU, with the
+    JAX package's grid configuration (``tests/models/test_scorer_grid.py``)."""
+
+    component = ImplicitMFScorer
+    config = ImplicitMFScorer.validate_config({"features": 16, "epochs": 3})
+    eval_config = ImplicitMFScorer.validate_config({"features": 32, "epochs": 10})
+    expected_ndcg = 0.19
+    device = "cpu"
