@@ -24,6 +24,7 @@ from lkpy_tpu_torch.batch.serving import PendingServe, enqueue_serve
 from lkpy_tpu_torch.config import lkpy_tpu_config
 from lkpy_tpu_torch.data import ArrayTopNILC, ItemListCollection, MatrixRelationshipSet
 from lkpy_tpu_torch.logging import Stopwatch, get_logger
+from lkpy_tpu_torch.logging.tracing import new_request, span
 
 _log = get_logger(__name__)
 
@@ -205,32 +206,33 @@ class PendingRecommend:
 
     def result(self) -> ItemListCollection:
         scores_s, idx_s, order = self._pending.finalize()
-        if self._f16:
-            top = np.finfo(np.float16).max
-            scores_s = np.where(np.isfinite(scores_s), np.clip(scores_s, -top, top), scores_s)
-            scores_s = scores_s.astype(np.float16).astype(np.float32)
-        user_ids, nums = self._user_ids, self._nums
-        n = idx_s.shape[1]  # may be < requested n for tiny catalogs
-        N = len(user_ids)
-        nums_out = np.zeros((N, n), np.int32)
-        scores_out = np.full((N, n), -np.inf, np.float32)
-        lengths = np.zeros(N, np.int64)
-        nums_out[order] = idx_s
-        scores_out[order] = scores_s
-        # -inf (masked history) sorts to the tail, so the finite prefix is
-        # the valid list; unknown users keep length 0 (empty lists)
-        lengths[order] = np.isfinite(scores_s).sum(axis=1) * (nums[order] >= 0)
-        ilc = ArrayTopNILC([self._key_field], list(user_ids), nums_out, scores_out, lengths, self._items_vocab)
-        self._sw.stop()
-        timings = self._pending.timings or {}
-        _log.info(
-            "device batch recommend",
-            users=N,
-            time=str(self._sw),
-            us_per_query=round(self._sw.elapsed() * 1e6 / max(N, 1), 1),
-            tunnel_ops=timings.get("tunnel_ops"),
-        )
-        return ilc
+        with span("lkt.serve.assemble", request=self._pending.request):
+            if self._f16:
+                top = np.finfo(np.float16).max
+                scores_s = np.where(np.isfinite(scores_s), np.clip(scores_s, -top, top), scores_s)
+                scores_s = scores_s.astype(np.float16).astype(np.float32)
+            user_ids, nums = self._user_ids, self._nums
+            n = idx_s.shape[1]  # may be < requested n for tiny catalogs
+            N = len(user_ids)
+            nums_out = np.zeros((N, n), np.int32)
+            scores_out = np.full((N, n), -np.inf, np.float32)
+            lengths = np.zeros(N, np.int64)
+            nums_out[order] = idx_s
+            scores_out[order] = scores_s
+            # -inf (masked history) sorts to the tail, so the finite prefix is
+            # the valid list; unknown users keep length 0 (empty lists)
+            lengths[order] = np.isfinite(scores_s).sum(axis=1) * (nums[order] >= 0)
+            ilc = ArrayTopNILC([self._key_field], list(user_ids), nums_out, scores_out, lengths, self._items_vocab)
+            self._sw.stop()
+            timings = self._pending.timings or {}
+            _log.info(
+                "device batch recommend",
+                users=N,
+                time=str(self._sw),
+                us_per_query=round(self._sw.elapsed() * 1e6 / max(N, 1), 1),
+                tunnel_ops=timings.get("tunnel_ops"),
+            )
+            return ilc
 
 
 def device_recommend(scorer, user_ids, n: int, matrix: MatrixRelationshipSet, **kw) -> ItemListCollection:
@@ -285,64 +287,72 @@ def device_recommend_async(
     ``serving.readback_precision = "f16"`` in the settings returns the
     scores rounded to float16, the JAX package's compact readback; the
     lists are the same.
+
+    The call is the span ``lkt.serve.dispatch``, its readback
+    ``lkt.serve.readback`` and the rest of ``result()``
+    ``lkt.serve.assemble``, the three under one request id
+    (:mod:`lkpy_tpu_torch.logging.tracing`).
     """
-    dev = resolve_device(device) if mesh is None else mesh.first
-    sw = Stopwatch()
-    serving = lkpy_tpu_config().serving
-    arrays = _extract_arrays(scorer)
-    if arrays is None:
-        raise TypeError(f"{type(scorer).__name__} does not support device batch scoring")
-    users_vocab = matrix.row_vocabulary
-    items_vocab = matrix.col_vocabulary
-    csr = matrix.csr("rating")
+    request = new_request()
+    with span("lkt.serve.dispatch", request=request):
+        dev = resolve_device(device) if mesh is None else mesh.first
+        sw = Stopwatch()
+        serving = lkpy_tpu_config().serving
+        arrays = _extract_arrays(scorer)
+        if arrays is None:
+            raise TypeError(f"{type(scorer).__name__} does not support device batch scoring")
+        users_vocab = matrix.row_vocabulary
+        items_vocab = matrix.col_vocabulary
+        csr = matrix.csr("rating")
 
-    def _f32_resident(arr):
-        return _cached_device(arr, dev).to(torch.float32)
+        def _f32_resident(arr):
+            return _cached_device(arr, dev).to(torch.float32)
 
-    i_emb = _f32_resident(arrays["i_embed"])
-    i_bias = arrays.get("i_bias")
-    i_bias_t = None if i_bias is None else _f32_resident(i_bias)
-    offset = float(arrays.get("offset", 0.0))
+        i_emb = _f32_resident(arrays["i_embed"])
+        i_bias = arrays.get("i_bias")
+        i_bias_t = None if i_bias is None else _f32_resident(i_bias)
+        offset = float(arrays.get("offset", 0.0))
 
-    user_ids = np.asarray(user_ids)
-    nums = users_vocab.numbers(user_ids, missing="negative")
+        user_ids = np.asarray(user_ids)
+        nums = users_vocab.numbers(user_ids, missing="negative")
 
-    # fold-in recomputes user embeddings from history on the device (the
-    # reference's default user_embeddings=True); "prefer" uses the table
-    use_fold = (
-        hasattr(scorer, "device_fold_kernel")
-        and getattr(getattr(scorer, "config", None), "user_embeddings", None) != "prefer"
-    )
-    kern = None
-    kern_args = ()
-    u_table = u_bias_t = None
-    # implicit fold-in without ratings needs only the history structure
-    needs_vals = use_fold and getattr(scorer, "fold_in_needs_ratings", True)
-    if use_fold:
-        kern, kern_args = scorer.device_fold_kernel()
-        kern_args = tuple(_cached_device(a, dev) if isinstance(a, (torch.Tensor, np.ndarray)) else a for a in kern_args)
-    else:
-        u_table = _f32_resident(arrays["u_embed"])
-        u_bias = arrays.get("u_bias")
-        u_bias_t = None if u_bias is None else _f32_resident(u_bias)
+        # fold-in recomputes user embeddings from history on the device (the
+        # reference's default user_embeddings=True); "prefer" uses the table
+        use_fold = (
+            hasattr(scorer, "device_fold_kernel")
+            and getattr(getattr(scorer, "config", None), "user_embeddings", None) != "prefer"
+        )
+        kern = None
+        kern_args = ()
+        u_table = u_bias_t = None
+        # implicit fold-in without ratings needs only the history structure
+        needs_vals = use_fold and getattr(scorer, "fold_in_needs_ratings", True)
+        if use_fold:
+            kern, kern_args = scorer.device_fold_kernel()
+            kern_args = tuple(_cached_device(a, dev) if isinstance(a, (torch.Tensor, np.ndarray)) else a for a in kern_args)
+        else:
+            u_table = _f32_resident(arrays["u_embed"])
+            u_bias = arrays.get("u_bias")
+            u_bias_t = None if u_bias is None else _f32_resident(u_bias)
 
-    pending = enqueue_serve(
-        nums,
-        csr,
-        n=n,
-        n_items=len(items_vocab),
-        i_emb=i_emb,
-        i_bias=i_bias_t,
-        offset=offset,
-        device=dev,
-        kern=kern,
-        kern_args=kern_args,
-        needs_vals=needs_vals,
-        u_table=u_table,
-        u_bias=u_bias_t,
-        block=chunk,
-        mesh=mesh,
-        timings=timings,
-    )
-    f16 = serving.readback_precision == "f16"
-    return PendingRecommend(pending, user_ids, nums, n, key_field, items_vocab, sw, f16=f16)
+        pending = enqueue_serve(
+            nums,
+            csr,
+            n=n,
+            n_items=len(items_vocab),
+            i_emb=i_emb,
+            i_bias=i_bias_t,
+            offset=offset,
+            device=dev,
+            kern=kern,
+            kern_args=kern_args,
+            needs_vals=needs_vals,
+            u_table=u_table,
+            u_bias=u_bias_t,
+            block=chunk,
+            mesh=mesh,
+            timings=timings,
+            request=request,
+        )
+        f16 = serving.readback_precision == "f16"
+        return PendingRecommend(pending, user_ids, nums, n, key_field, items_vocab, sw, f16=f16)

@@ -21,7 +21,9 @@ f16/u16 readback, resident scalars and the per-group scan programs.  Results
 come back as f32 scores and int32 item numbers.  ``timings`` gets the JAX
 package's keys, told of the copies between host and device: ``enqueue_s``,
 ``readback_s``, a ``trace`` of ``(label, seconds, bytes)`` a copy and
-``tunnel_ops``, their count.
+``tunnel_ops``, their count.  The readback is the span
+``lkt.serve.readback`` (:mod:`lkpy_tpu_torch.logging.tracing`), under the
+call's ``request`` id; ``readback_s`` is its duration.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from lkpy_tpu_torch.logging.tracing import span
 
 __all__ = ["PendingServe", "ServePlan", "enqueue_serve", "plan_groups", "serve_batch"]
 
@@ -155,7 +159,8 @@ class PendingServe(NamedTuple):
     with rows in sorted order: position ``order[i]`` -> input row, and
     fills ``timings`` (when given) with ``enqueue_s``, ``readback_s`` (host
     seconds of the readback, waiting for the device work included),
-    ``trace`` and ``tunnel_ops``."""
+    ``trace`` and ``tunnel_ops``.  ``request`` is the id of the call's
+    spans."""
 
     v: torch.Tensor  # (N_pad, n) f32 on the device
     ix: torch.Tensor  # (N_pad, n) int32 on the device
@@ -164,13 +169,14 @@ class PendingServe(NamedTuple):
     t_enqueue: float = 0.0
     trace: list | None = None
     timings: dict | None = None
+    request: int | None = None
 
     def finalize(self):
         N = self.n_rows
-        tr = time.perf_counter()
-        v, ix = self.v[:N].cpu().numpy(), self.ix[:N].cpu().numpy()
-        t_read = time.perf_counter() - tr
+        with span("lkt.serve.readback", request=self.request, timed=self.timings is not None) as read:
+            v, ix = self.v[:N].cpu().numpy(), self.ix[:N].cpu().numpy()
         if self.timings is not None:
+            t_read = read.seconds
             self.trace.append(("readback:topn", t_read, v.nbytes + ix.nbytes))
             self.timings["enqueue_s"] = self.t_enqueue
             self.timings["readback_s"] = t_read
@@ -203,13 +209,14 @@ def enqueue_serve(
     block: int = 1024,
     mesh=None,
     timings: dict | None = None,
+    request: int | None = None,
 ) -> PendingServe:
     """Issue all device work for one serving batch of user numbers ``nums``
     (−1 for unknown users) against the training ``csr``.  ``kern`` is a
     fold-in kernel (with ``kern_args``) or None to look users up in
     ``u_table``.  With ``mesh`` each block's users split over its ``data``
     slots and ``device`` is its first slot's.  ``timings`` is filled by
-    ``finalize()``."""
+    ``finalize()``; ``request`` is the id its readback span carries."""
     trace: list | None = [] if timings is not None else None
     t0 = time.perf_counter()
     n = min(n, n_items)  # catalogs smaller than the requested list length
@@ -245,4 +252,4 @@ def enqueue_serve(
                 vb, ib_ = _serve_block(nums_dev[lo : lo + sb], indptr, colv, valv, ie, ib, offset, ut, ub, kern, args, g.width, n)
                 v[lo : lo + sb] = vb.to(device)
                 ix[lo : lo + sb] = ib_.to(device)
-    return PendingServe(v, ix, plan.order, len(nums), time.perf_counter() - t0, trace, timings)
+    return PendingServe(v, ix, plan.order, len(nums), time.perf_counter() - t0, trace, timings, request)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.logging.tracing import count, span
 from lkpy_tpu_torch.ops.gather_gram import _launch as _gather_gram_launch
 from lkpy_tpu_torch.ops.gather_gram import gather_gram
 from lkpy_tpu_torch.ops.sparse import PaddedRowMatrix
@@ -59,7 +60,6 @@ __all__ = [
     "batched_spd_solve",
     "chunk_buckets",
     "chunk_stats",
-    "epoch_flops",
     "implicit_otor",
     "solve_explicit_bucket",
     "solve_implicit_bucket",
@@ -127,7 +127,9 @@ class ChunkedRows(NamedTuple):
     ``first:first + B`` of chunks that are ``stride`` rows wide (the whole
     chunk: 0 and B; a slab of a sharded bucket: a part of it), and
     ``plan_rows`` is the rows of the unsharded chunk, which the
-    gather-and-Gram kernel's launch plan is chosen for.
+    gather-and-Gram kernel's launch plan is chosen for.  ``real_entries``
+    holds each chunk's real entries, counted on the host when the chunks
+    are built.
     """
 
     rows: torch.Tensor  # (C, B) int32
@@ -138,6 +140,7 @@ class ChunkedRows(NamedTuple):
     first: int
     stride: int
     plan_rows: int
+    real_entries: tuple[int, ...]
 
     def real_rows(self, c: int) -> int:
         """How many of chunk ``c``'s slots hold real rows (they come first)."""
@@ -202,6 +205,7 @@ def chunk_buckets(
                 s * sb,
                 step,
                 plan_rows,
+                tuple(int(e) for e in mask[:, s * sb : (s + 1) * sb].sum(axis=(1, 2))),
             )
             for s, dev in enumerate(slots)
         )
@@ -222,7 +226,7 @@ def chunk_stats(chunks: tuple[ChunkedRows, ...]) -> dict:
     for ch in _slabs(chunks):
         C, B, P = ch.cols.shape
         entries += C * B * P
-        real += int(ch.mask.sum())
+        real += sum(ch.real_entries)
         rows += C * B
         real_rows += int((ch.rows < INT32_MAX).sum())
     return {
@@ -233,20 +237,6 @@ def chunk_stats(chunks: tuple[ChunkedRows, ...]) -> dict:
         "real_rows": real_rows,
         "row_occupancy": real_rows / rows if rows else 1.0,
     }
-
-
-def epoch_flops(u_stats: dict, i_stats: dict, k: int, *, useful: bool) -> float:
-    """Flops of one ALS epoch (both halves): 2·k² multiply-adds = 4·k² flops
-    per (entry) of the Gram, k³/3 per row solve (the Cholesky count).
-    ``useful`` counts only real entries and rows; padded counts give the
-    work the device actually does."""
-    e_u = u_stats["real_entries" if useful else "padded_entries"]
-    e_i = i_stats["real_entries" if useful else "padded_entries"]
-    r_u = u_stats["real_rows" if useful else "padded_rows"]
-    r_i = i_stats["real_rows" if useful else "padded_rows"]
-    gram = 2.0 * (e_u + e_i) * k * k * 2.0
-    solves = (r_u + r_i) * (k**3) / 3.0
-    return gram + solves
 
 
 def _normal_equations(cols, values, mask, right, otor, reg, mode: str, plan_rows: int | None = None):
@@ -278,32 +268,39 @@ def _run_half(left, right, reg: float, chunks, mode: str):
     each slab on its slot's device (a slab of padding only launches
     nothing); every device keeps a copy of the table, the solutions are
     written into each, and the delta is summed on ``left``'s device, where
-    the returned table lies.
+    the returned table lies.  The half is the span ``lkt.als.half``, each
+    chunk or slab issued ``lkt.als.chunk``; the counters
+    ``als.entries_real`` and ``als.entries_padded`` add each issued chunk's
+    entries from host integers (:mod:`lkpy_tpu_torch.logging.tracing`).
     """
     if mode not in ("implicit", "explicit"):
         raise ValueError(f"unknown ALS mode {mode!r}")
-    home = left.device
-    slabs = _slabs(chunks)
-    devices = list(dict.fromkeys([home] + [s.rows.device for s in slabs]))
-    lefts = {dev: left.clone() if dev == home else left.to(dev) for dev in devices}
-    rights = {dev: right.to(dev) for dev in devices}
-    otor = implicit_otor(right, reg) if mode == "implicit" else None
-    otors = {dev: None if otor is None else otor.to(dev) for dev in devices}
-    dsq = torch.zeros((), dtype=torch.float32, device=home)
-    for ch in chunks:
-        parts = ch.slabs if isinstance(ch, ShardedChunks) else (ch,)
-        for c in range(parts[0].rows.shape[0]):
-            for part in parts:
-                nv = part.real_rows(c)
-                if nv == 0:
-                    continue
-                dev = part.rows.device
-                x = _solve_chunk(part.cols[c], part.values[c], part.mask[c], rights[dev], otors[dev], reg, mode, part.plan_rows)[:nv]
-                rows = part.rows[c, :nv]
-                dsq = dsq + torch.sum(torch.square(x - lefts[dev][rows])).to(home)
-                for table_dev, table in lefts.items():
-                    table[rows.to(table_dev)] = x.to(table_dev)
-    return lefts[home], dsq
+    with span("lkt.als.half"):
+        home = left.device
+        slabs = _slabs(chunks)
+        devices = list(dict.fromkeys([home] + [s.rows.device for s in slabs]))
+        lefts = {dev: left.clone() if dev == home else left.to(dev) for dev in devices}
+        rights = {dev: right.to(dev) for dev in devices}
+        otor = implicit_otor(right, reg) if mode == "implicit" else None
+        otors = {dev: None if otor is None else otor.to(dev) for dev in devices}
+        dsq = torch.zeros((), dtype=torch.float32, device=home)
+        for ch in chunks:
+            parts = ch.slabs if isinstance(ch, ShardedChunks) else (ch,)
+            for c in range(parts[0].rows.shape[0]):
+                for part in parts:
+                    nv = part.real_rows(c)
+                    if nv == 0:
+                        continue
+                    with span("lkt.als.chunk"):
+                        count("als.entries_real", part.real_entries[c])
+                        count("als.entries_padded", part.cols.shape[1] * part.cols.shape[2])
+                        dev = part.rows.device
+                        x = _solve_chunk(part.cols[c], part.values[c], part.mask[c], rights[dev], otors[dev], reg, mode, part.plan_rows)[:nv]
+                        rows = part.rows[c, :nv]
+                        dsq = dsq + torch.sum(torch.square(x - lefts[dev][rows])).to(home)
+                        for table_dev, table in lefts.items():
+                            table[rows.to(table_dev)] = x.to(table_dev)
+        return lefts[home], dsq
 
 
 def _as_chunks(buckets, device: torch.device, mesh=None) -> tuple:
