@@ -898,16 +898,23 @@ def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, rep
     triangle and y) and a float64 sum, check two launches equal to the bit,
     and time in turns the kernel, its plain version (``index_select``, the
     weighted copy, two ``torch.bmm``) and the route it replaced (the row
-    gather kernel, the copy and the products), beside its bound.  The
-    kernel is launched through ``kernel`` (default ``gather_gram``) where
-    the path launches it otherwise."""
-    from lkpy_tpu_torch.ops.gather_gram import copy_width, gather_gram, gather_gram_plain
+    gather kernel, the copy and the products), beside its bound.  Where the
+    shape takes the tensor route, the FMA route (copy width 2 forced on the
+    same table) is held to float64 and timed beside it.  The kernel is
+    launched through ``kernel`` (default ``gather_gram``) where the path
+    launches it otherwise."""
+    from lkpy_tpu_torch.ops.gather_gram import _launch, copy_width, gather_gram, gather_gram_plain, tensor_route
 
+    route = "tensor" if tensor_route(right.shape[1], copy_width(right)) else "fma"
+    fma_too = route == "tensor" and kernel is None and right.is_cuda
     kernel = kernel or gather_gram
     kw = dict(otor=otor) if otor is not None else dict(reg=reg)
+    before_tc = gather_gram.launches_tc
     A, y = kernel(cols, values, mask, right, **kw)
     A2, y2 = kernel(cols, values, mask, right, **kw)
     torch.cuda.synchronize()
+    if kernel is gather_gram and right.is_cuda and gather_gram.launches_tc - before_tc != (2 if route == "tensor" else 0):
+        raise AssertionError(f"gather_gram {label}: the launches did not take the {route} route")
     Ap, yp = gather_gram_plain(cols, values, mask, right, **kw)
     k = right.shape[1]
     li = torch.tril_indices(k, k, device=right.device)
@@ -923,6 +930,11 @@ def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, rep
     del G
     top64, top64_y = max(float(A64.abs().max()), 1e-30), max(float(y64.abs().max()), 1e-30)
     err64 = float((low.double() - A64).abs().max()) / top64
+    fma64 = None
+    if fma_too:
+        Af, yf = _launch(cols, values, mask, right, otor, reg, width=2)
+        fma64 = max(float((Af[:, li[0], li[1]].double() - A64).abs().max()) / top64, float((yf.double() - y64).abs().max()) / top64_y)
+        del Af, yf
     err64_y = float((y.double() - y64).abs().max()) / top64_y
     plain64 = float((low_p.double() - A64).abs().max()) / top64
     plain64_y = float((yp.double() - y64).abs().max()) / top64_y
@@ -945,16 +957,21 @@ def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, rep
         "kernel": lambda: kernel(cols, values, mask, right, **kw),
         "plain": lambda: gather_gram_plain(cols, values, mask, right, **kw),
         "unfused": lambda: unfused_normal_eqs(cols, values, mask, right, **kw),
+        "fma": lambda: _launch(cols, values, mask, right, otor, reg, width=2),
     }
-    for name in ("kernel", "plain", "unfused", "unfused", "plain", "kernel"):
+    order = ("kernel", "fma", "plain", "unfused", "unfused", "plain", "fma", "kernel")
+    for name in order if fma_too else [n for n in order if n != "fma"]:
         times.setdefault(name, []).append(cuda_ms(fns[name], reps))
     ms, plain_ms, unfused_ms = (float(np.mean(times[n])) for n in ("kernel", "plain", "unfused"))
+    fma_ms = float(np.mean(times["fma"])) if fma_too else None
     bound_ms, bound_by = gram_bound(cols, mask, right, otor is not None)
     real = int(mask.sum())
     log(
         f"gather_gram {label}: ({cols.shape[0]}, {cols.shape[1]}) {str(cols.dtype).removeprefix('torch.')} slots, {real} real, "
-        f"k={k}, {copy_width(right) * 4}-byte copies: kernel {ms:.4f} ms "
-        f"({real * (k * (k + 1) + 2 * k) / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"k={k}, {copy_width(right) * 4}-byte copies, {route} route: kernel {ms:.4f} ms "
+        f"({real * (k * (k + 1) + 2 * k) / ms / 1e9:.2f} TFLOP/s), "
+        + (f"FMA route {fma_ms:.4f} ms (of the float64 sums' largest magnitude {fma64:.3e}), " if fma_too else "")
+        + f"plain {plain_ms:.4f} ms, "
         f"row-gather kernel + copy + bmm {unfused_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; kernel {ms / bound_ms:.2f}x); "
         f"max abs error against plain {max_abs_err:.3e} ({over:.3f} of the tolerance); of the float64 sums' largest magnitude {err64:.3e} "
         f"(plain {plain64:.3e}), y {err64_y:.3e} (plain {plain64_y:.3e}); two launches equal to the bit"
@@ -962,7 +979,7 @@ def gram_case(label: str, cols, values, mask, right, *, otor=None, reg=None, rep
     return dict(
         label=label, rows=cols.shape[0], slots=cols.shape[1], real=real, k=k, index_type=str(cols.dtype).removeprefix("torch."),
         max_abs_err=max_abs_err, f64_err=err64, plain_f64_err=plain64, ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
+        bound_by=bound_by, library_ms=None, route=route, fma_ms=fma_ms, fma_f64_err=fma64,
     )  # fmt: skip
 
 

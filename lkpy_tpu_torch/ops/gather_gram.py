@@ -14,19 +14,26 @@ This is what ``lkpy_tpu/ops/als.py`` computes with an XLA gather and
 einsums (``_gram_scan_implicit``, ``_gram_scan_explicit``,
 ``solve_*_bucket``), and what the port first computed with the row-gather
 kernel (:mod:`lkpy_tpu_torch.ops.gather_rows`), a weighted copy and two
-``torch.bmm``.  The hand-written CUDA kernel of ``csrc/gather_gram.cu``
-reads each factor row by index straight into shared memory and sums A's
+``torch.bmm``.  The hand-written CUDA kernels of ``csrc/gather_gram.cu``
+read each factor row by index straight into shared memory and sum A's
 lower triangle and y in registers, so the gathered rows never reach device
 memory.  The rows of a bucket too small to fill the card, or wider than
 2,048 slots, are split into segments whose partial sums the last block of
 a row adds in a fixed order (:func:`launch_plan`).
 
-:func:`gather_gram` launches the kernel for CUDA tensors and runs
+Two routes, chosen by the copy width (:func:`copy_width`) and k: width 4
+at k ≤ 64 (k a multiple of 4 on a 16-byte aligned table) sums on the
+tensor cores in three-pass TF32, which keeps float32's accuracy; widths 2
+and 1, and k > 64, sum with float32 fused multiply-adds.
+
+:func:`gather_gram` launches a kernel for CUDA tensors and runs
 :func:`gather_gram_plain` (that first route: ``index_select``, the weighted
 copy, two ``torch.bmm``) for CPU tensors.  ``gather_gram.launches`` counts
-kernel launches.  On the card only A's lower triangle is written (the solves
-read nothing else); its upper triangle is undefined.  The plain version
-fills all of A.
+kernel launches and ``gather_gram.launches_tc`` those of the tensor route
+(also the counter ``gather_gram.tc_launches`` of
+:func:`lkpy_tpu_torch.logging.tracing.count`).  On the card only A's lower
+triangle is written (the solves read nothing else); its upper triangle is
+undefined.  The plain version fills all of A.
 """
 
 from __future__ import annotations
@@ -35,12 +42,15 @@ import ctypes
 
 import torch
 
+from lkpy_tpu_torch.logging.tracing import count
 from lkpy_tpu_torch.ops.gather_rows import gather_rows_plain
 
-__all__ = ["MAX_K", "copy_width", "gather_gram", "gather_gram_plain", "launch_plan"]
+__all__ = ["MAX_K", "TENSOR_MAX_K", "copy_width", "gather_gram", "gather_gram_plain", "launch_plan", "tensor_route"]
 
 #: the widest factor row the kernel takes (the solves' limit)
 MAX_K = 256
+#: the widest factor row the tensor route takes (one 64 x 64 tile)
+TENSOR_MAX_K = 64
 
 _lib = None
 
@@ -70,13 +80,12 @@ def _library():
             ctypes.c_int,  # L
             ctypes.c_void_p,  # ws
             ctypes.c_void_p,  # sync
+            ctypes.c_int,  # W: the copy width, which chooses the route
             ctypes.c_void_p,  # stream
         ]
         lib.lkt_gather_gram_f32.restype = ctypes.c_int
         lib.lkt_gather_gram_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
         lib.lkt_gather_gram_plan.restype = None
-        lib.lkt_gather_gram_width.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-        lib.lkt_gather_gram_width.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -132,8 +141,9 @@ def gather_gram(
         otor: (k, k) f32 ``YᵀY + λI``: implicit mode.
         reg: regularization: explicit mode.
 
-    CUDA tensors go to the kernel of ``csrc/gather_gram.cu``, which writes
-    only A's lower triangle (the upper is undefined); CPU tensors go to
+    CUDA tensors go to a kernel of ``csrc/gather_gram.cu`` (the tensor
+    route where :func:`tensor_route` says so, else the FMA route), which
+    writes A's lower triangle (the upper is undefined); CPU tensors go to
     :func:`gather_gram_plain`.
     """
     _check(cols, values, mask, right, otor, reg)
@@ -143,14 +153,19 @@ def gather_gram(
 
 
 gather_gram.launches = 0
+gather_gram.launches_tc = 0
 
 
-def _launch(cols, values, mask, right, otor, reg, plan_rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(
+    cols, values, mask, right, otor, reg, plan_rows: int | None = None, width: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors, with the launch plan
     (:func:`launch_plan`, which splits the rows of a small bucket into
     segments) chosen for ``plan_rows`` rows (default B): a slab of a
     sharded chunk (``ops/als.py``) passes the whole chunk's rows, so that
-    each row is summed in the order it is without a mesh."""
+    each row is summed in the order it is without a mesh.  ``width``
+    forces a narrower copy width than :func:`copy_width` (2 takes the FMA
+    route on an aligned table), for tests and measurements."""
     B, P, k = _check(cols, values, mask, right, otor, reg)
     if right.device.type != "cuda":
         raise ValueError(f"gather_gram runs on cuda or cpu, not {right.device}")
@@ -165,6 +180,12 @@ def _launch(cols, values, mask, right, otor, reg, plan_rows: int | None = None) 
         raise IndexError("gather_gram: a real slot refers to a row of an empty table")
     cols, values, mask = cols.contiguous(), values.contiguous(), mask.contiguous()
     otor_c = None if otor is None else otor.contiguous()
+    if otor_c is not None and otor_c.data_ptr() % 16:
+        otor_c = otor_c.clone()  # the tensor route reads otor in 16-byte pieces
+    natural = copy_width(right)
+    width = natural if width is None else width
+    if width not in (1, 2, 4) or width > natural:
+        raise ValueError(f"gather_gram: copy width {width} does not fit this table (its width is {natural})")
     lib = _library()
     with torch.cuda.device(right.device):
         rows = plan_rows or B
@@ -179,11 +200,14 @@ def _launch(cols, values, mask, right, otor, reg, plan_rows: int | None = None) 
             right.data_ptr(), max(right.stride(0), k), max(n, 1), cols.data_ptr(), cols.element_size(),
             values.data_ptr(), mask.data_ptr(), B, P, None if otor_c is None else otor_c.data_ptr(),
             0.0 if reg is None else float(reg), k, A.data_ptr(), y.data_ptr(), S, L,
-            None if ws is None else ws.data_ptr(), None if sync is None else sync.data_ptr(), stream,
+            None if ws is None else ws.data_ptr(), None if sync is None else sync.data_ptr(), width, stream,
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"gather_gram kernel launch failed with CUDA error {err} (B={B}, P={P}, k={k}, n={n})")
     gather_gram.launches += 1
+    if tensor_route(k, width):
+        gather_gram.launches_tc += 1
+        count("gather_gram.tc_launches", 1)
     return A, y
 
 
@@ -191,18 +215,36 @@ def launch_plan(B: int, P: int, k: int) -> tuple[int, int, int, int]:
     """How the kernel launches a (B, P) bucket at width k (needs the card's
     toolkit): the segments S each row is split into, the slots L of a
     segment, and the workspace floats and int32 counters a split launch
-    takes (0 and 0 for S = 1).  Rows are split where the bucket's blocks
-    would not fill the card twice or a row is wider than 2,048 slots."""
+    takes (0 and 0 for S = 1), enough for either route.  Rows are split
+    where the bucket's blocks would not fill the card twice or a row is
+    wider than 2,048 slots."""
     out = (ctypes.c_longlong * 4)()
     _library().lkt_gather_gram_plan(B, P, k, out)
     return int(out[0]), int(out[1]), int(out[2]), int(out[3])
 
 
+def tensor_route(k: int, width: int) -> bool:
+    """Whether a launch at width k with this copy width takes the tensor
+    route (three-pass TF32 on the tensor cores): copy width 4 at k ≤ 64,
+    one 64 × 64 tile.  Widths 2 and 1, and k > 64 (where the tensor route's
+    blocks measured slower than the FMA kernel's), take the FMA route.  The
+    kernel's own rule (``csrc/gather_gram.cu::tensor_route``) is the same."""
+    return width == 4 and k <= TENSOR_MAX_K
+
+
 def copy_width(right: torch.Tensor) -> int:
-    """The copy width in floats (4, 2 or 1) the kernel takes for this table
-    (needs the card's toolkit)."""
+    """The copy width in floats the kernel takes for this (n, k) table, which
+    with k chooses its route (:func:`tensor_route`): 4 where k and the row
+    stride are multiples of 4 and the table is 16-byte aligned, else 2 where
+    they are multiples of 2 and it is 8-byte aligned, else 1.  Every table of
+    the port's training and serving at k = 64 takes width 4 and the tensor
+    route; k = 50 or a view at an odd offset takes the FMA route."""
     k = right.shape[1]
-    return int(_library().lkt_gather_gram_width(right.data_ptr(), max(right.stride(0), k), k))
+    ld = max(right.stride(0), k)
+    for width in (4, 2):
+        if k % width == 0 and ld % width == 0 and right.data_ptr() % (4 * width) == 0:
+            return width
+    return 1
 
 
 def gather_gram_plain(

@@ -612,18 +612,29 @@ def _assert_gram_agrees(A, y, A2, y2, cols, vals, mask, right, kw):
         assert bool(((got - plain).abs() <= 1e-5 * plain.abs() + share * top).all())
 
 
+_GRAM_SHAPES = [
+    (k, B, P) for B, P in [(1, 1), (1, 120), (7, 120), (7, 5000), (1024, 120), (8, 100_000)] for k in (1, 50, 64, 128, 256)
+]
+# the training cell's own shape classes: the user half's largest chunk, a
+# split user bucket and the widest item chunk
+_GRAM_SHAPES += [(k, B, P) for B, P in [(25_896, 48), (1_312, 1_072), (40, 79_120)] for k in (64, 128)]
+
+
 @pytest.mark.parametrize("mode", ["implicit", "explicit"])
-@pytest.mark.parametrize("k", [1, 50, 64, 128, 256])
-@pytest.mark.parametrize("B,P", [(1, 1), (1, 120), (7, 120), (7, 5000), (1024, 120), (8, 100_000)])
+@pytest.mark.parametrize("k,B,P", [pytest.param(k, B, P, id=f"{B}-{P}-{k}") for k, B, P in _GRAM_SHAPES])
 def test_gather_gram_kernel_matches_plain(cuda, mode, k, B, P):
     rng = np.random.default_rng(B + P + k)
     cols, vals, mask, right, otor = _gram_inputs(rng, B, P, k, cuda)
     kw = dict(otor=otor) if mode == "implicit" else dict(reg=0.1)
-    before = gather_gram.launches
+    before = (gather_gram.launches, gather_gram.launches_tc)
     A, y = gather_gram(cols, vals, mask, right, **kw)
     A2, y2 = gather_gram(cols, vals, mask, right, **kw)
     torch.cuda.synchronize()
-    assert gather_gram.launches == before + 2
+    assert gather_gram.launches == before[0] + 2
+    # the route: copy width 4 (k % 4 == 0 on an aligned table) at k <= 64 takes the tensor cores;
+    # widths 2 and 1, and k > 64, the FMA kernel
+    assert copy_width(right) == (4 if k % 4 == 0 else 2 if k % 2 == 0 else 1)
+    assert gather_gram.launches_tc - before[1] == (2 if copy_width(right) == 4 and k <= 64 else 0)
     _assert_gram_agrees(A, y, A2, y2, cols, vals, mask, right, kw)
 
 
@@ -637,9 +648,11 @@ def test_gather_gram_misaligned_tables_and_holes(cuda, mode, k, offset, width):
     cols[~mask] = -7  # a masked slot's column is never read
     assert copy_width(right) == width
     kw = dict(otor=otor) if mode == "implicit" else dict(reg=0.1)
+    before = gather_gram.launches_tc
     A, y = gather_gram(cols, vals, mask, right, **kw)
     A2, y2 = gather_gram(cols, vals, mask, right, **kw)
     torch.cuda.synchronize()
+    assert gather_gram.launches_tc - before == (2 if width == 4 and k <= 64 else 0)  # the tensor route
     _assert_gram_agrees(A, y, A2, y2, cols.clamp_min(0), vals, mask, right, kw)
 
 

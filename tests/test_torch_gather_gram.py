@@ -162,3 +162,105 @@ def test_plain_is_the_unfused_route():
     y = torch.bmm(G.transpose(1, 2), ((vals + 1) * m)[:, :, None])[:, :, 0]
     A2, y2 = gather_gram_plain(cols, vals, mask, right, otor=otor)
     assert torch.equal(A, A2) and torch.equal(y, y2)
+
+
+def test_copy_width_is_the_route():
+    """The copy width, which alone chooses the kernel's route on the card
+    (4: the tensor cores; 2 and 1: the FMA kernel), from k, the row stride
+    and the table's alignment."""
+    from lkpy_tpu_torch.ops.gather_gram import copy_width
+
+    base = torch.zeros(40 * 66 + 4)
+    assert copy_width(base[: 40 * 64].view(40, 64)) == 4
+    assert copy_width(base[4 : 4 + 40 * 64].view(40, 64)) == 4  # 16 bytes past the start
+    assert copy_width(base[2 : 2 + 40 * 64].view(40, 64)) == 2
+    assert copy_width(base[1 : 1 + 40 * 64].view(40, 64)) == 1
+    assert copy_width(base[: 40 * 50].view(40, 50)) == 2  # k = 50: the FMA route
+    assert copy_width(base[: 40 * 66].view(40, 66)[:, :64]) == 2  # rows 66 floats apart
+    assert copy_width(base[: 20 * 65].view(20, 65)) == 1
+    assert copy_width(base[: 40 * 64].view(40, 64)[:1]) == 4
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, nearest,
+    ties away from zero (the magnitude's bits rounded up at half)."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tensor_core_gram(A_op: np.ndarray, X: np.ndarray, passes: int) -> np.ndarray:
+    """The tensor route's sum of ``A_opᵀ X`` over the entries (rows): each
+    operand split as big = tf32(x), small = tf32(x − big); per stage of 32
+    entries the products (exact in float64: 11-bit significands) of
+    big·big, or of small·big + big·small + big·big, summed into fresh
+    fragments, then added to a segment's running float32 sums; the
+    segments' sums (2,048 slots each, the widest a launch plan gives) added
+    in order in float32."""
+    ab = _tf32(A_op).astype(np.float64)
+    a_s = _tf32(A_op - _tf32(A_op)).astype(np.float64)
+    bb = _tf32(X).astype(np.float64)
+    b_s = _tf32(X - _tf32(X)).astype(np.float64)
+    k = X.shape[1]
+    total = np.zeros((k, k), np.float32)
+    for s0 in range(0, X.shape[0], 2048):
+        segment = np.zeros((k, k), np.float32)
+        for p0 in range(s0, min(s0 + 2048, X.shape[0]), 32):
+            st = slice(p0, p0 + 32)
+            part = ab[st].T @ bb[st]
+            if passes == 3:
+                part += a_s[st].T @ bb[st] + ab[st].T @ b_s[st]
+            segment += part.astype(np.float32)
+        total += segment
+    return total
+
+
+@pytest.mark.parametrize("ratings", ["none", "half-stars"])
+def test_three_pass_tf32_passes_the_card_gate_and_one_pass_does_not(ratings):
+    """The tolerance that the card's tests hold the kernel to
+    (``tests/test_torch_cuda.py::_assert_gram_agrees``: within 1e-5 of the
+    float64 sums' largest magnitude, and within rtol 1e-5 plus 1e-6 of that
+    magnitude, or the plain version's own distance where larger, of the
+    plain version) can tell the tensor route's three passes from one.  An
+    implicit bucket of the training cell's widest item chunk, (4, 79,120)
+    at k = 64, against a 138,493-row user table, with its confidences
+    c = 40 r (r = 1 without ratings, as in the cell).  Three passes lie
+    within 1e-6 of the float64 sums' largest magnitude.  One pass lies
+    within 1e-5 of it here (its roundings cancel over so many entries, about
+    5e-6), and the comparison with the plain version refuses it, at about
+    four times the tolerance."""
+    rng = np.random.default_rng(21 + len(ratings))
+    n, k, P = 138_493, 64, 79_120
+    table = (0.1 * rng.standard_normal((n, k))).astype(np.float32)
+    lens = rng.integers(58_609, P + 1, 4)
+    cols = np.stack([rng.choice(n, P, replace=False) for _ in lens]).astype(np.int32)
+    r = np.ones((4, P)) if ratings == "none" else rng.integers(1, 11, (4, P)) / 2
+    vals = (40.0 * r).astype(np.float32)
+    mask = np.arange(P)[None, :] < lens[:, None]
+    low = np.tril_indices(k)
+    Ap, _ = gather_gram_plain(
+        torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(mask), torch.from_numpy(table),
+        otor=torch.zeros((k, k)),
+    )  # fmt: skip
+    plain, want, got = [], [], {1: [], 3: []}
+    for b, m in enumerate(lens):
+        X = table[cols[b, :m]]
+        A_op = X * vals[b, :m, None]  # the weight scales the A operand in float32 before its split
+        want.append((X.astype(np.float64) * vals[b, :m, None].astype(np.float64)).T @ X.astype(np.float64))
+        plain.append(Ap[b].numpy().astype(np.float64))
+        for passes in got:
+            got[passes].append(_tensor_core_gram(A_op, X, passes).astype(np.float64))
+    want, plain = np.stack(want)[:, low[0], low[1]], np.stack(plain)[:, low[0], low[1]]
+    top = float(np.abs(want).max())
+    share = max(1e-6, float(np.abs(plain - want).max()) / top)
+
+    def gate(sums):
+        sums = np.stack(sums)[:, low[0], low[1]]
+        f64 = float(np.abs(sums - want).max()) / top
+        over = float((np.abs(sums - plain) / (1e-5 * np.abs(plain) + share * top)).max())
+        return f64, over
+
+    f64_3, over_3 = gate(got[3])
+    f64_1, over_1 = gate(got[1])
+    assert f64_3 <= 1e-6 and over_3 <= 1.0
+    assert f64_1 > 1e-5 or over_1 > 1.0
+    assert over_1 > 2.0 and over_1 > 50 * over_3
