@@ -12,9 +12,9 @@ The parameters are a dict of float32 tensors on the training device (the
 card unless ``TrainingOptions(device="cpu")``), as the JAX package's pytree
 is; gradients come from autograd and ``optax.adam``/``adamw`` become
 ``torch.optim.Adam``/``AdamW`` with the same rate, decay, betas and eps,
-updating the whole tables each step.  An epoch is a Python loop over its
-steps with no host synchronization inside and one readback of the summed
-loss at the end.  The example order comes from the NumPy generator of
+updating the whole tables each step.  An epoch is a loop over its
+steps (``train_step``, no host synchronization) and one readback of the
+summed loss at the end.  The example order comes from the NumPy generator of
 ``TrainingOptions``, the same permutation as the JAX package's; initial
 tables and negatives come from a ``torch.Generator`` on the training
 device, whose stream differs from ``jax.random``'s (``load_parameters``
@@ -43,6 +43,7 @@ from pydantic import AliasChoices, BaseModel, Field, model_validator
 from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.config import EmbeddingSizeMixin
 from lkpy_tpu_torch.data import Dataset, ItemList, QueryInput, RecQuery, Vocabulary
+from lkpy_tpu_torch.logging.tracing import count, span
 from lkpy_tpu_torch.ops.graph import propagate, sorted_conv
 from lkpy_tpu_torch.ops.sampling import DeviceCSRIndex, sample_negatives
 from lkpy_tpu_torch.ops.sparse import DeviceCOO
@@ -327,11 +328,16 @@ class FlexMFTrainerBase(ModelTrainer):
     """The batching and optimizer loop (reference: _training.py:39), which
     LightGCN's trainer shares.
 
-    A step draws the batch's negatives (:meth:`draw_negatives`) and any
-    propagated tables (:meth:`step_embeds`) once, then takes the loss of
-    the batch (:meth:`block_loss`): whole, or with a mesh as the sum of each
-    ``data`` slot's part (:func:`~lkpy_tpu_torch.parallel.gradient.
-    sharded_step_loss`), for one backward pass and one optimizer step."""
+    A step (:meth:`train_step`) takes the open epoch's next batch, draws its
+    negatives (:meth:`draw_negatives`) and any propagated tables
+    (:meth:`step_embeds`) once, then takes the loss of the batch
+    (:meth:`block_loss`): whole, or with a mesh as the sum of each ``data``
+    slot's part (:func:`~lkpy_tpu_torch.parallel.gradient.
+    sharded_step_loss`), for one backward pass and one optimizer step.  The
+    step is the span ``lkt.grad.step``, around ``lkt.grad.negatives``,
+    ``lkt.grad.backward`` and ``lkt.grad.update``; the counter
+    ``grad.examples`` adds the batch's rows
+    (:mod:`lkpy_tpu_torch.logging.tracing`)."""
 
     def __init__(self, component: FlexMFScorerBase, data: Dataset, options: TrainingOptions):
         self.component = component
@@ -348,6 +354,9 @@ class FlexMFTrainerBase(ModelTrainer):
         self.n_users = data.user_count
         self.n_items = data.item_count
         self.epochs_trained = 0
+        self._batches = None  # the open epoch's batches, (steps, batch) a column
+        self._cursor = 0  # the next batch of the open epoch
+        self.last_batch: tuple[torch.Tensor, ...] = ()  # the last step's columns and negatives
         self.prepare_data(data)
         # drawn whole on the first slot, then split: the same tables with
         # a mesh and without
@@ -386,8 +395,11 @@ class FlexMFTrainerBase(ModelTrainer):
         raise NotImplementedError
 
     def batch_loss(self, *cols) -> torch.Tensor:
-        """The loss of one batch of examples, its negatives drawn here."""
-        cols = cols + self.draw_negatives(cols[0])
+        """The loss of one batch of examples, its negatives drawn here; the
+        columns and negatives stay in :attr:`last_batch`."""
+        with span("lkt.grad.negatives"):
+            cols = cols + self.draw_negatives(cols[0])
+        self.last_batch = cols
         loss = partial(self.block_loss, self.step_embeds(), cols[0].shape[0])
         if self.mesh is None:
             return loss(*cols)
@@ -412,21 +424,45 @@ class FlexMFTrainerBase(ModelTrainer):
             perm = np.concatenate([perm, self.rng.choice(n, size=bs - tail)])
         return perm, bs
 
-    def train_epoch(self) -> float:
-        """One epoch, a step a batch; returns the mean batch loss, the only
-        value read back."""
+    def _open_epoch(self) -> None:
+        """Draw the next epoch's order and cut its batches on the device."""
         perm, bs = self._epoch_perm()
-        n_steps = len(perm) // bs
         perm_dev = torch.as_tensor(perm, device=self.device)
-        batches = [col[perm_dev].view(n_steps, bs) for col in self.batch_columns()]
-        total = torch.zeros((), device=self.device)
-        for s in range(n_steps):
+        self._batches = [col[perm_dev].view(-1, bs) for col in self.batch_columns()]
+        self._cursor = 0
+
+    def train_step(self) -> torch.Tensor:
+        """One mini-batch step: the next batch of the open epoch (a new
+        epoch's order drawn first when none is open), its loss, one backward
+        pass and one optimizer step.  Returns the batch's loss as a device
+        scalar, read by nothing here; the epoch counts as trained when its
+        last batch is taken."""
+        with span("lkt.grad.step"):
+            if self._batches is None:
+                self._open_epoch()
+            cols = tuple(b[self._cursor] for b in self._batches)
+            self._cursor += 1
+            if self._cursor == self._batches[0].shape[0]:
+                self._batches = None
+                self.epochs_trained += 1
+            count("grad.examples", cols[0].shape[0])
             self.opt.zero_grad()
-            loss = self.batch_loss(*(b[s] for b in batches))
-            loss.backward()
-            self.opt.step()
-            total += loss.detach()
-        self.epochs_trained += 1
+            loss = self.batch_loss(*cols)
+            with span("lkt.grad.backward"):
+                loss.backward()
+            with span("lkt.grad.update"):
+                self.opt.step()
+            return loss.detach()
+
+    def train_epoch(self) -> float:
+        """The steps left in the open epoch, or a whole new epoch; returns
+        their mean batch loss, the only value read back."""
+        if self._batches is None:
+            self._open_epoch()
+        n_steps = self._batches[0].shape[0] - self._cursor
+        total = torch.zeros((), device=self.device)
+        for _ in range(n_steps):
+            total += self.train_step()
         return float(total) / n_steps if n_steps else 0.0
 
     def whole_params(self) -> dict[str, torch.Tensor]:

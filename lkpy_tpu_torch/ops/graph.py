@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from lkpy_tpu_torch._device import resolve_device
+from lkpy_tpu_torch.logging.tracing import count, span
 from lkpy_tpu_torch.parallel.ops import Sharded, shard_rows
 
 __all__ = [
@@ -92,17 +93,27 @@ def _csr_pair(conv) -> tuple[torch.Tensor, torch.Tensor]:
     return _csr(rows, cols, vals, n_users, n_items), _csr(cols_c, rows_c, vals_c, n_items, n_users)
 
 
+def _count_product(edges: int) -> None:
+    count("graph.spmm_products", 1)
+    count("graph.spmm_edges", edges)
+
+
 class _CSRMM(torch.autograd.Function):
     """``a @ x`` for a CSR matrix ``a`` whose transpose ``a_t`` is given too:
-    the backward is ``a_t @ g``, a product in the orientation already held."""
+    the backward is ``a_t @ g``, a product in the orientation already held.
+    Each product, forward and backward, adds one to the counter
+    ``graph.spmm_products`` and its matrix's stored entries (a host integer)
+    to ``graph.spmm_edges``."""
 
     @staticmethod
     def forward(ctx, x, a, a_t):
         ctx.a_t = a_t
+        _count_product(a._nnz())
         return torch.sparse.mm(a, x)
 
     @staticmethod
     def backward(ctx, g):
+        _count_product(ctx.a_t._nnz())
         return torch.sparse.mm(ctx.a_t, g.contiguous()), None, None
 
 
@@ -117,16 +128,18 @@ def propagate(u, i, conv, blend):
     edge tensors in any order, or the 8-tuple of :func:`sorted_conv`, which
     adds a column-sorted copy ``(…, rows_c, cols_c, vals_c)`` and promises
     row-major base edges (trainers build it).  ``blend`` holds the
-    ``layers + 1`` weights.  Differentiable in ``u`` and ``i``."""
-    a, a_t = _csr_pair(conv)
-    w = _blend(blend)
-    u_acc = u * w[0]
-    i_acc = i * w[0]
-    for l in range(1, len(w)):
-        u, i = _CSRMM.apply(i, a, a_t), _CSRMM.apply(u, a_t, a)
-        u_acc = u_acc + u * w[l]
-        i_acc = i_acc + i * w[l]
-    return u_acc, i_acc
+    ``layers + 1`` weights.  Differentiable in ``u`` and ``i``.  The forward
+    is the span ``lkt.graph.propagate``; its products count in :class:`_CSRMM`."""
+    with span("lkt.graph.propagate"):
+        a, a_t = _csr_pair(conv)
+        w = _blend(blend)
+        u_acc = u * w[0]
+        i_acc = i * w[0]
+        for l in range(1, len(w)):
+            u, i = _CSRMM.apply(i, a, a_t), _CSRMM.apply(u, a_t, a)
+            u_acc = u_acc + u * w[l]
+            i_acc = i_acc + i * w[l]
+        return u_acc, i_acc
 
 
 def sorted_conv(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, nu: int, ni: int, device: str | torch.device | None = None):

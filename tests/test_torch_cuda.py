@@ -911,6 +911,41 @@ def test_gradient_epoch_on_card_matches_cpu(cuda, model, monkeypatch):
         np.testing.assert_allclose(got[name], want[name], rtol=0, atol=1e-4, err_msg=name)
 
 
+def test_lightgcn_step_on_card_matches_cpu_and_records_its_spans(cuda, monkeypatch):
+    """One ``train_step`` at k = 64 and K = 3 on the card against the CPU's
+    from the same tables and negatives; inside ``record_spans()`` it records
+    the step's five spans, its batch's rows and 12 sparse products."""
+    import lkpy_tpu_torch.models.lightgcn as lightgcn
+    from lkpy_tpu_torch.logging import counts, record_spans, take_spans
+
+    monkeypatch.setattr(lightgcn, "sample_negatives", _det_negatives)
+    ds = _ratings_dataset(np.random.default_rng(45))
+    nnz = ds.interaction_matrix().csr(None).nnz
+
+    def make():
+        return lightgcn.LightGCNScorer(embedding_size=64, layer_count=3, batch_size=512, learning_rate=1e-3, regularization=1e-4)
+
+    on_cpu = make().create_trainer(ds, TrainingOptions(rng=7, device="cpu"))
+    on_card = make().create_trainer(ds, TrainingOptions(rng=7))
+    on_card.load_parameters(on_cpu.get_parameters())
+    take_spans()
+    before = counts()
+    with record_spans():
+        got = on_card.train_step()
+        torch.cuda.synchronize()
+    after = counts()
+    names = {s.name for s in take_spans()}
+    want = on_cpu.train_step()
+    assert got.device.type == "cuda" and float(got) == pytest.approx(float(want), rel=1e-5)
+    for a, b in zip(on_card.last_batch, on_cpu.last_batch):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    for name, table in on_cpu.get_parameters().items():
+        np.testing.assert_allclose(on_card.get_parameters()[name], table, rtol=0, atol=1e-4, err_msg=name)
+    assert names == {"lkt.grad.step", "lkt.grad.negatives", "lkt.graph.propagate", "lkt.grad.backward", "lkt.grad.update"}
+    added = {k: after.get(k, 0) - before.get(k, 0) for k in ("grad.examples", "graph.spmm_products", "graph.spmm_edges")}
+    assert added == {"grad.examples": 512, "graph.spmm_products": 12, "graph.spmm_edges": 12 * nnz}
+
+
 @pytest.mark.parametrize("kind", ["bpr", "warp", "explicit", "lightgcn"])
 def test_gradient_scorers_train_and_serve_on_card_by_default(cuda, kind):
     from lkpy_tpu_torch.data import ItemList
