@@ -109,11 +109,13 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      batch's negatives checked by exact membership, NDCG@10 through
      ``device_recommend`` above the popularity ranking's), LightGCN (2
      epochs with falling losses, one propagation against float64 SciPy,
+     each direction of the hand SpMM of ``csrc/spmm.cu`` against float64 and
+     timed beside its bound, ``spmm_plain`` and ``torch.sparse.mm``,
      NDCG@10, the dense bf16 route's gradients against the CSR route's), and
      ``topn_pipeline(FlexMFImplicitScorer(preset="warp", ...))`` →
      ``Pipeline.train`` → ``batch.recommend`` of 1,000 test users through
      the device route with 20 per-query lists beside it; these paths launch
-     none of the five kernels either;
+     none of the five kernels either, and the propagation launches the SpMM;
    - the rest of the zoo, each model trained by ``Pipeline.train`` and freed
      before the next: FunkSVD (64 features, batch 8,192; feature 0's first
      batches against a float64 replay, a profiled epoch, hold-out RMSE),
@@ -467,6 +469,7 @@ def kernel_wrappers() -> dict:
     """The port's kernel wrappers by name; each counts its launches."""
     from lkpy_tpu_torch.ops.gather_gram import gather_gram
     from lkpy_tpu_torch.ops.gather_rows import gather_rows
+    from lkpy_tpu_torch.ops.graph import spmm
     from lkpy_tpu_torch.ops.mips_topk import mips_topk
     from lkpy_tpu_torch.ops.spd_solve import spd_solve
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
@@ -477,6 +480,7 @@ def kernel_wrappers() -> dict:
         "mips_topk": mips_topk,
         "gather_rows": gather_rows,
         "gather_gram": gather_gram,
+        "spmm": spmm,
     }
 
 
@@ -2180,8 +2184,8 @@ def check_quick_launches(label: str, steps: dict, res, scorer, predicts: bool) -
     calls = len(test) * (2 if predicts else 1)
     unknown = sum(not (scorer.items.numbers(t.ids(), missing="negative") >= 0).any() for _, t in test.items()) if predicts else 0
     want = {
-        "train": {"spd_solve": 0, "spd_solve_chunked": per_chunk, "mips_topk": 0, "gather_rows": 0, "gather_gram": per_chunk},
-        "run": {"spd_solve": calls, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": calls - unknown, "gather_gram": calls},
+        "train": {"spd_solve": 0, "spd_solve_chunked": per_chunk, "mips_topk": 0, "gather_rows": 0, "gather_gram": per_chunk, "spmm": 0},
+        "run": {"spd_solve": calls, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": calls - unknown, "gather_gram": calls, "spmm": 0},
     }
     log(f"{label}: launches by step {steps}; {per_chunk} training chunks, {calls} scorer calls ({unknown} with no known item)")
     for step, counts in want.items():
@@ -2722,6 +2726,45 @@ def spmm_bound(nnz: int, n_src: int, n_dst: int, k: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def spmm_directions(trainer, bounds: dict) -> dict:
+    """Each direction of the trainer's propagation on its own, CUDA events
+    over ``PROPAGATE_REPS`` calls: SU (user rows from item rows) and SI
+    (item rows from user rows) by the hand kernel (``ms``, checked against
+    ``spmm_plain`` in float64 within ``PROPAGATE_TOL``), beside the bound,
+    the plain version (``plain_ms``) and ``torch.sparse.mm`` of the same CSR
+    matrix (``library_ms``, a yardstick the port does not call)."""
+    from lkpy_tpu_torch.ops import graph
+
+    conv = trainer.conv
+    a, a_t = graph._csr_pair(conv)
+    rows, cols, vals = conv[0].long(), conv[1].long(), conv[2]
+    u = trainer.params["u_embed"].detach()
+    i = trainer.params["i_embed"].detach()
+    out = {}
+    for name, op, x, src, dst in (("su", a, i, cols, rows), ("si", a_t, u, rows, cols)):
+        got, hot = graph.spmm(op, x)
+        want = graph.spmm_plain(vals.double(), src, dst, x.double(), op.shape[0])
+        f64_err = float((got.double() - want).abs().max() / want.abs().max())
+        del want
+        if not f64_err <= PROPAGATE_TOL:
+            raise AssertionError(f"spmm {name} differs from float64 by {f64_err} (tolerance {PROPAGATE_TOL})")
+        csr = op.csr()
+        rec = dict(
+            ms=cuda_ms(lambda op=op, x=x: graph.spmm(op, x), PROPAGATE_REPS),
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            plain_ms=cuda_ms(lambda x=x, src=src, dst=dst, n=op.shape[0]: graph.spmm_plain(vals, src, dst, x, n), PROPAGATE_REPS),
+            library_ms=cuda_ms(lambda csr=csr, x=x: torch.sparse.mm(csr, x), PROPAGATE_REPS),
+            hot_share=hot / vals.shape[0], launches=len(op.launches(x.shape[1])[0]), f64_err=f64_err,
+        )  # fmt: skip
+        log(
+            f"spmm {name.upper()} at k={x.shape[1]}: {rec['ms']:.4f} ms against its bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}); plain {rec['plain_ms']:.4f} ms, torch.sparse.mm {rec['library_ms']:.4f} ms; "
+            f"{rec['launches']} launch(es), {100 * rec['hot_share']:.1f} % of edges from shared memory, float64 error {f64_err:.2e}"
+        )
+        out[name] = rec
+    return out
+
+
 def timed_epochs(trainer, epochs: int) -> tuple[list, list]:
     """Host seconds and mean loss of ``epochs`` epochs, each ending in its
     loss readback."""
@@ -2922,7 +2965,7 @@ def propagate_routes(trainer) -> dict:
     out = {}
     grads = fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend))
     if PROFILES:
-        a, a_t = graph._csr_pair(conv)
+        a, a_t = (op.csr() for op in graph._csr_pair(conv))
 
         def library(u, i):
             # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
@@ -3032,17 +3075,17 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
         wall = (time.perf_counter() - t) * 1e3
         evs = device_events(steps)
         busy = sum(e.self_device_time_total for e in evs) / 1e3
-        # cuSPARSE's kernels: the product itself (csrmm) and its partition and scaling kernels
-        spmm = [e for e in evs if "cusparse" in e.key.lower()]
+        # the products' kernels, by the benchmark's name rule
+        from portbench.roofline.graph import spmm_kernel
+
+        spmm = [e for e in evs if spmm_kernel(e.key)]
         spmm_ms = sum(e.self_device_time_total for e in spmm) / 1e3
-        products = [e for e in spmm if "csrmm" in e.key.lower()]
-        directions = sum(e.count for e in products)
-        expected = LIGHTGCN_PROFILE_STEPS * 4 * (len(trainer.blend) - 1)
-        per_direction = spmm_ms / max(directions, 1)
+        products = LIGHTGCN_PROFILE_STEPS * 4 * (len(trainer.blend) - 1)
+        per_direction = spmm_ms / products
         log(
             f"profile of {LIGHTGCN_PROFILE_STEPS} LightGCN steps: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-            f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in evs)} launches; cuSPARSE {spmm_ms:.3f} ms "
-            f"({spmm_ms / max(busy, 1e-9):.3f} of busy) over {directions} products recorded of {expected} run = {per_direction:.3f} ms "
+            f"(idle share {1 - busy / wall:.3f}), {sum(e.count for e in evs)} launches; the products' kernels {spmm_ms:.3f} ms "
+            f"({spmm_ms / max(busy, 1e-9):.3f} of busy) over {products} products = {per_direction:.3f} ms "
             f"a direction against its bound {bound_u[0]:.4f} ms (user side, {bound_u[1]}) / {bound_i[0]:.4f} ms (item side)"
         )
         for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
@@ -3051,6 +3094,7 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     log(f"propagate on the card vs float64 SciPy ({PROPAGATE_ORACLE_ROWS} users and items): max relative error {err:.3e}")
     if not err <= PROPAGATE_TOL:
         raise AssertionError(f"propagate differs from float64 by {err} (tolerance {PROPAGATE_TOL})")
+    directions = spmm_directions(trainer, {"su": bound_u, "si": bound_i})
     trainer.finalize()
     nd, serve_s = recommend_ndcg(scorer, ds, test_u, test_i)
     launches = read_counts()
@@ -3060,7 +3104,7 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     out = dict(
         setup_s=setup_s, epoch_s=times, examples_per_s=nnz / times[1], losses=losses, peak_gib=peak,
         steps_wall_ms=wall, steps_busy_ms=busy, spmm_ms_per_direction=per_direction,
-        spmm_bound_ms=[bound_u[0], bound_i[0]], propagate_err=err, ndcg=nd, **routes,
+        spmm_bound_ms=[bound_u[0], bound_i[0]], spmm_directions=directions, propagate_err=err, ndcg=nd, **routes,
     )  # fmt: skip
     return launches, out
 
@@ -3136,8 +3180,9 @@ def gradient_phase(dev, split: dict) -> dict:
     warp, warp_out = warp_pipeline_phase(dev, split)
     paths = {"gradient_flexmf": flexmf, "gradient_lightgcn": lightgcn, "gradient_pipeline": warp}
     for path, counts in paths.items():
-        if any(counts.values()):
-            raise AssertionError(f"the {path} path launched a kernel: {counts}")
+        # LightGCN's propagation runs on the SpMM, and nothing else on a kernel of the port
+        if any(v for k, v in counts.items() if k != "spmm") or (counts["spmm"] > 0) != (path == "gradient_lightgcn"):
+            raise AssertionError(f"the {path} path launched a kernel other than LightGCN's SpMM, or LightGCN none: {counts}")
     split["gradient"] = dict(flexmf=flexmf_out, lightgcn=lightgcn_out, warp=warp_out)
     log(f"gradient phase: {time.perf_counter() - t:.1f}s")
     return paths
@@ -4852,8 +4897,8 @@ def mesh_gradient(dev, split: dict, mesh, kind: str) -> tuple[dict, dict]:
         raise AssertionError(f"mesh {label}: loss {losses[0]} differs from the unsharded {want['loss']} by {loss_err} relative (limit {MESH_GRAD_LOSS_TOL})")
     if max(errs.values()) > MESH_GRAD_TABLE_TOL:
         raise AssertionError(f"mesh {label}: the tables differ from the unsharded ones by {errs} (limit {MESH_GRAD_TABLE_TOL})")
-    if any(launches.values()):
-        raise AssertionError(f"the mesh {label} path launched a kernel: {launches}")
+    if any(v for k, v in launches.items() if k != "spmm") or (launches["spmm"] > 0) != (kind == "lightgcn"):
+        raise AssertionError(f"the mesh {label} path launched a kernel other than LightGCN's SpMM, or LightGCN none: {launches}")
     del trainer, got
     torch.cuda.empty_cache()
     out = dict(setup_s=setup_s, epoch_s=times[0], unsharded_epoch_s=want["s"], unsharded_later_epoch_s=later,
@@ -5274,6 +5319,17 @@ def main() -> int:
             shapes=split["gram"],
             ladder_shapes=split["data_config"]["grams"],
             tuner_shapes=split["tooling"]["grams"],
+        ),
+        dict(
+            name="spmm",
+            route="cuda",
+            source="lkpy_tpu_torch/csrc/spmm.cu",
+            # no TPU kernel: cuSPARSE's csrmm, where the JAX package's propagation is segment sums (lkpy_tpu/ops/graph.py)
+            replaces=None,
+            launches=paths["gradient_lightgcn"]["spmm"],
+            launches_by_path={p: c["spmm"] for p, c in paths.items()},
+            # each direction of the gradient phase's LightGCN propagation, k = 64
+            directions=split["gradient"]["lightgcn"]["spmm_directions"],
         ),
     ]
     phase_s["total"] = time.perf_counter() - t_start

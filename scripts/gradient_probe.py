@@ -9,8 +9,10 @@ FlexMF-BPR (k = 64, batch 32,768, 5 epochs, NDCG@10 against the popularity
 ranking, a profiled epoch, the host Bloom build timed alone), LightGCN (2
 epochs, a profile of 5 steps, one propagation against float64, the CSR, the
 dense bf16 and ``torch.sparse.mm``'s own backward routes timed) and the
-WARP pipeline, with every check of that phase (``chip_smoke.PROFILES`` on).  Builds no kernel: these paths launch none.  Prints
-the card's name and power limit first and last.
+WARP pipeline, with every check of that phase (``chip_smoke.PROFILES`` on).
+LightGCN's propagation builds and launches the SpMM (``csrc/spmm.cu``),
+each direction timed beside its bound; the other paths launch no kernel.
+Prints the card's name and power limit first and last.
 """
 
 from __future__ import annotations

@@ -877,6 +877,134 @@ def test_csr_propagation_on_card_matches_plain(cuda):
         assert err <= 1e-5, err
 
 
+#: (label, users, items, k, edges a user (low, high), users of item 0, empty users, empty items)
+SPMM_CASES = [
+    ("skewed k=64, partial hot set", 20_000, 3_000, 64, (5, 60), 0, 0, 0),
+    ("skewed k=16, partial hot set", 20_000, 6_000, 16, (5, 60), 0, 0, 0),
+    ("items staged whole", 5_000, 500, 64, (5, 60), 0, 0, 0),
+    ("k=50, scalar slices", 20_000, 3_000, 50, (5, 60), 0, 0, 0),
+    ("k=200, two slices", 5_000, 3_000, 200, (5, 30), 0, 0, 0),
+    ("an item row past 65,536 edges", 70_000, 2_000, 64, (1, 6), 70_000, 0, 0),
+    ("empty rows on both sides", 20_000, 3_000, 64, (5, 60), 0, 300, 200),
+]
+
+
+def _skewed_graph(rng, n_users, n_items, per_user, item0_users, empty_users, empty_items):
+    """Edges with Zipf-like item degrees (row-major, columns rising within a
+    row), item 0 given to ``item0_users`` users, and the last
+    ``empty_users`` users and ``empty_items`` items left without edges."""
+    live_u, live_i = n_users - empty_users, n_items - empty_items
+    lens = rng.integers(per_user[0], per_user[1] + 1, live_u)
+    p = 1.0 / (np.arange(live_i) + 10.0) ** 1.1
+    rows = np.repeat(np.arange(live_u), lens)
+    cols = rng.choice(live_i, size=len(rows), p=p / p.sum())
+    if item0_users:
+        extra = rng.choice(live_u, item0_users, replace=False)
+        rows, cols = np.concatenate([rows, extra]), np.concatenate([cols, np.zeros(item0_users, np.int64)])
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order].astype(np.int32), cols[order].astype(np.int32)
+    vals = rng.uniform(0.05, 1.0, len(rows)).astype(np.float32)
+    return rows, cols, vals
+
+
+@pytest.mark.parametrize("case", SPMM_CASES, ids=[c[0] for c in SPMM_CASES])
+def test_spmm_kernel_matches_float64_forward_and_backward(cuda, case):
+    """Both orientations through ``_CSRMM`` on the hand kernel, forward and
+    backward, against ``spmm_plain`` in float64; the launches, the products'
+    counters and the hot edges against the degrees."""
+    from lkpy_tpu_torch.logging import counts, record_spans
+    from lkpy_tpu_torch.ops import graph
+
+    _, nu, ni, k, per_user, item0, empty_u, empty_i = case
+    rng = np.random.default_rng(61)
+    rows, cols, vals = _skewed_graph(rng, nu, ni, per_user, item0, empty_u, empty_i)
+    conv = graph.sorted_conv(rows, cols, vals, nu, ni)
+    a, a_t = graph._csr_pair(conv)
+    u = torch.from_numpy(rng.standard_normal((nu, k)).astype(np.float32)).to(cuda)
+    i = torch.from_numpy(rng.standard_normal((ni, k)).astype(np.float32)).to(cuda)
+    wu, wi = torch.randn_like(u), torch.randn_like(i)
+    x, y = i.clone().requires_grad_(), u.clone().requires_grad_()
+    launches, before = graph.spmm.launches, counts()
+    with record_spans():
+        got_u, got_i = graph._CSRMM.apply(x, a, a_t), graph._CSRMM.apply(y, a_t, a)
+        ((got_u * wu).sum() + (got_i * wi).sum()).backward()
+    torch.cuda.synchronize()
+    after = counts()
+    r, c, v = conv[0].long(), conv[1].long(), conv[2].double()
+    want = (
+        (got_u, graph.spmm_plain(v, c, r, i.double(), nu)),
+        (got_i, graph.spmm_plain(v, r, c, u.double(), ni)),
+        (x.grad, graph.spmm_plain(v, r, c, wu.double(), ni)),
+        (y.grad, graph.spmm_plain(v, c, r, wi.double(), nu)),
+    )
+    for g, w in want:
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        err = float((g.detach().double() - w).abs().max() / w.abs().max())
+        assert err <= 1e-5, (case[0], err)
+    if empty_u:
+        assert bool((got_u[-empty_u:] == 0).all()) and bool((y.grad[-empty_u:] == 0).all())
+    if empty_i:
+        assert bool((got_i[-empty_i:] == 0).all()) and bool((x.grad[-empty_i:] == 0).all())
+    slices = -(-k // (128 if k % 4 == 0 else 32))
+    assert graph.spmm.launches - launches == 2 * slices * (len(a.plan(k)) + len(a_t.plan(k)))
+    # the user side is one launch; the item side adds a tiled launch of its wide rows
+    blocks = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert len(a.plan(k)) == 1 and len(a_t.plan(k)) == 1 + bool((np.bincount(cols) >= graph._WIDE_EDGES * blocks).any())
+    if "past" in case[0]:
+        assert len(a_t.plan(k)) == 2
+    h = graph.hot_count(ni, k)
+    deg = np.bincount(cols, minlength=ni)
+    hot_edges = int(deg[sorted(range(ni), key=lambda j: (-deg[j], j))[:h]].sum())
+    (plan,) = a.plan(k)
+    assert plan.hot.shape[0] == h and plan.hot_edges == hot_edges
+    assert (h == ni) == (case[0] == "items staged whole")
+    added = {name: after.get(name, 0) - before.get(name, 0) for name in ("graph.spmm_products", "graph.spmm_edges", "graph.spmm_hot_edges")}
+    # the user side's hot edges, and the item side's edges summed from staged tiles, forward and backward
+    staged = sum(p.hot_edges for p in a_t.plan(k))
+    assert staged == sum(len(p.vals) for p in a_t.plan(k) if p.tile_src is not None)
+    assert added == {"graph.spmm_products": 4, "graph.spmm_edges": 4 * len(vals), "graph.spmm_hot_edges": 2 * (hot_edges + staged)}
+
+
+def test_spmm_refuses_what_the_kernel_does_not_take(cuda):
+    from lkpy_tpu_torch.ops import graph
+
+    rows, cols, vals = _skewed_graph(np.random.default_rng(62), 200, 50, (2, 8), 0, 0, 0)
+    a, _ = graph._csr_pair(graph.sorted_conv(rows, cols, vals, 200, 50))
+    with pytest.raises(TypeError):
+        graph.spmm(a, torch.zeros((50, 8), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        graph.spmm(a, torch.zeros((49, 8), device=cuda))
+    with pytest.raises(ValueError):
+        graph.spmm(a, torch.zeros((50, 8)))
+    cpu_a, _ = graph._csr_pair(graph.sorted_conv(rows, cols, vals, 200, 50, device="cpu"))
+    with pytest.raises(ValueError):
+        graph.spmm(cpu_a, torch.zeros((50, 8), device=cuda))
+    # a table view at an odd offset is copied to an aligned one
+    table = torch.randn((50 * 8 + 1,), device=cuda)[1:].view(50, 8)
+    got, _ = graph.spmm(a, table)
+    want = graph.spmm_plain(*(t.to(cuda) for t in (torch.from_numpy(vals), torch.from_numpy(cols).long(), torch.from_numpy(rows).long())), table, 200)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_lightgcn_step_on_card_runs_no_cusparse_kernel(cuda, monkeypatch):
+    """A profiled LightGCN step at k = 64: its products run the hand kernels
+    (named ``spmm``), none of cuSPARSE's."""
+    import lkpy_tpu_torch.models.lightgcn as lightgcn
+
+    monkeypatch.setattr(lightgcn, "sample_negatives", _det_negatives)
+    ds = _ratings_dataset(np.random.default_rng(46))
+    trainer = lightgcn.LightGCNScorer(embedding_size=64, layer_count=3, batch_size=512).create_trainer(ds, TrainingOptions(rng=7))
+    trainer.train_step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    names = [e.name.lower() for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert any("spmm" in n for n in names), names
+    assert not any("cusparse" in n or "csrmm" in n for n in names), names
+
+
 def _det_negatives(generator, index, rows, *, n=1, weighting="uniform", max_attempts=16):
     """Fixed candidates, each slot's first that the exact CSR search finds no
     interaction for: the same negatives on either device."""

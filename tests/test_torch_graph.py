@@ -214,3 +214,219 @@ def test_propagate_dense_matches_jax(data, layers):
     _close(ia.detach(), jia)
     _close(tu.grad, jgu)
     _close(ti.grad, jgi)
+
+
+# ---------------------------------------------------------------------------
+# the plan of the hand SpMM (csrc/spmm.cu), built with torch ops on any device
+def _pair(data):
+    rows, cols, vals = data[:3]
+    return graph._csr_pair(sorted_conv(rows, cols, vals, N_USERS, N_ITEMS, device="cpu"))
+
+
+def _kernel_sum(parts, x, n):
+    """The plan's launches summed in order as the kernel sums them: each work
+    item's rows or segment, hot edges from the staged rows, then the scratch
+    rows of each long row (or of each row's tiles) in order.  Every row must
+    be written."""
+    k = x.shape[1]
+    x = x.double()
+    out = torch.full((n, k), float("nan"), dtype=torch.float64)
+    for plan in parts:
+        staged = None if plan.hot is None else x[plan.hot.long()]
+        partial = torch.full((plan.n_slots, k), float("nan"), dtype=torch.float64)
+
+        def row_sum(r, lo, hi):
+            e = torch.arange(lo, hi)
+            src = plan.src[lo:hi].long()
+            if plan.tile_src is not None:
+                # staged tiles: columns count from the tile's first source row
+                src = src + plan.tile_src[r // plan.red_rows.shape[0]]
+            hot = e < int(plan.split[r]) if plan.split is not None else torch.zeros(hi - lo, dtype=torch.bool)
+            got = x[src.clamp(max=x.shape[0] - 1)]
+            if staged is not None and bool(hot.any()):
+                got[hot] = staged[src[hot]]
+            return (plan.vals[lo:hi].double()[:, None] * got).sum(0)
+
+        edges, rows, slots = plan.work_edge.tolist(), plan.work_row.tolist(), plan.work_slot.tolist()
+        for i, slot in enumerate(slots):
+            if slot >= 0:
+                partial[slot] = row_sum(rows[i], edges[i], edges[i + 1])
+            else:
+                for r in range(rows[i], rows[i + 1]):
+                    got = row_sum(r, int(plan.rowptr[r]), int(plan.rowptr[r + 1]))
+                    if plan.row_slot is None:
+                        out[r] = got
+                    else:
+                        partial[int(plan.row_slot[r])] = got
+        ptr = plan.red_ptr.tolist()
+        for j, r in enumerate(plan.red_rows.tolist()):
+            out[r] = partial[ptr[j] : ptr[j + 1]].sum(0)
+    assert not torch.isnan(out).any()
+    return out
+
+
+def test_hot_count_follows_k():
+    assert graph.hot_count(26_744, 64) == 800
+    # at most 800 rows where more would fit
+    assert graph.hot_count(26_744, 16) == graph.hot_count(26_744, 50) == 800
+    # k past one launch's slice stages the slice's width; k % 4 != 0 slices of 32
+    assert graph.hot_count(26_744, 256) == graph.hot_count(26_744, 128) == 400
+    assert graph.hot_count(180, 64) == 180 and graph.hot_count(0, 64) == 0
+
+
+@pytest.mark.parametrize("h", [1, 20, 97])
+def test_plan_hot_set_is_the_top_h_by_degree(data, monkeypatch, h):
+    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
+    a, a_t = _pair(data)
+    (plan,) = a.plan(K)
+    assert graph.hot_count(N_ITEMS, K) == h and plan.hot.shape == (h,)
+    deg = np.bincount(data[1], minlength=N_ITEMS)
+    want = sorted(range(N_ITEMS), key=lambda i: (-deg[i], i))[:h]
+    np.testing.assert_array_equal(plan.hot.numpy(), want)
+    assert plan.hot_edges == int(deg[want].sum())
+    # the item side stages nothing
+    (other,) = a_t.plan(K)
+    assert other.hot is None and other.split is None and other.hot_edges == 0
+
+
+@pytest.mark.parametrize("h", [20, N_ITEMS])
+def test_hot_first_order_decodes_to_the_csr(data, monkeypatch, h):
+    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
+    rows, cols, vals = data[:3]
+    a, _ = _pair(data)
+    (plan,) = a.plan(K)
+    ptr = plan.rowptr.numpy()
+    np.testing.assert_array_equal(ptr, np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=N_USERS))]))
+    hot = set(plan.hot.tolist())
+    for r in range(N_USERS):
+        lo, split, hi = ptr[r], int(plan.split[r]), ptr[r + 1]
+        assert lo <= split <= hi
+        slots = plan.src[lo:split].long()
+        assert bool((slots < h).all())
+        decoded = np.concatenate([plan.hot[slots].numpy(), plan.src[split:hi].numpy()])
+        assert not hot & set(plan.src[split:hi].tolist())
+        got = sorted(zip(decoded.tolist(), plan.vals[lo:hi].tolist()))
+        want = sorted(zip(cols[rows == r].tolist(), vals[rows == r].tolist()))
+        assert got == want
+
+
+def test_five_and_eight_tuple_give_the_same_plan(data, monkeypatch):
+    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * 33)
+    rows, cols, vals = data[:3]
+    eight = graph._csr_pair(sorted_conv(rows, cols, vals, N_USERS, N_ITEMS, device="cpu"))
+    five = graph._csr_pair(_torch_conv(rows, cols, vals, 5))
+    for x, y in zip(eight, five):
+        assert x.shape == y.shape and len(x.plan(K, 3)) == len(y.plan(K, 3))
+        for px, py in zip(x.plan(K, 3), y.plan(K, 3)):
+            for f in graph.SpmmPlan._fields:
+                u, v = getattr(px, f), getattr(py, f)
+                if isinstance(u, torch.Tensor):
+                    assert torch.equal(u, v), f
+                else:
+                    assert u == v, f
+
+
+def test_eight_tuple_plans_once(data):
+    conv = sorted_conv(*data[:3], N_USERS, N_ITEMS, device="cpu")
+    a, a_t = graph._csr_pair(conv)
+    assert graph._csr_pair(conv)[0] is a and graph._csr_pair(tuple(conv))[1] is a_t
+    assert a.plan(K) is a.plan(K)
+    # another 8-tuple over the same rows but other values plans anew
+    other = conv[:2] + (conv[2] * 2,) + conv[3:7] + (conv[7] * 2,)
+    assert graph._csr_pair(other)[0] is not a
+
+
+@pytest.mark.parametrize("seg,group_rows", [(1024, 256), (16, 4), (3, 1)])
+@pytest.mark.parametrize("h,blocks", [(0, None), (20, 3), (N_ITEMS, 1)])
+def test_plan_summed_as_the_kernel_sums_matches_plain(data, monkeypatch, seg, group_rows, h, blocks):
+    """Each orientation's launches emulated from the plan, at lowered item
+    sizes; with ``blocks`` the item side's tiles hold 1 KB of user rows and
+    rows of 4 edges a block are wide, so both its parts run."""
+    monkeypatch.setattr(graph, "_SEG", seg)
+    monkeypatch.setattr(graph, "_TILE_SEG", seg)
+    monkeypatch.setattr(graph, "_GROUP_ROWS", group_rows)
+    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
+    monkeypatch.setattr(graph, "_TILE_BYTES", 1024)
+    monkeypatch.setattr(graph, "_WIDE_EDGES", 4)
+    rows, cols, vals, u, i = data[:5]
+    a, a_t = _pair(data)
+    tv, tr, tc = torch.from_numpy(vals), torch.from_numpy(rows), torch.from_numpy(cols)
+    for op, x, want in (
+        (a, i, spmm_plain(tv, tc, tr, torch.from_numpy(i), N_USERS)),
+        (a_t, u, spmm_plain(tv, tr, tc, torch.from_numpy(u), N_ITEMS)),
+    ):
+        parts = op.plan(K, blocks)
+        assert len(parts) == (2 if op is a_t and blocks else 1)
+        for plan in parts:
+            edges = plan.work_edge.numpy()
+            assert edges[0] == 0 and edges[-1] == len(plan.vals) and (np.diff(edges) >= 0).all()
+            for e, r, slot in zip(np.diff(edges), np.diff(plan.work_row.numpy()), plan.work_slot.numpy()):
+                assert (e <= seg and r <= 1) if slot >= 0 else (e < 2 * seg + 1 and r <= group_rows)
+        assert sum(len(p.vals) for p in parts) == len(vals)
+        if len(parts) == 2:
+            # the wide rows: those of at least 4 edges a block; each tile's source rows within 1 KB
+            deg = np.bincount(cols, minlength=N_ITEMS)
+            wide = parts[1]
+            np.testing.assert_array_equal(wide.red_rows.numpy(), np.flatnonzero(deg >= 4 * blocks))
+            assert wide.blocks == blocks and wide.row_slot is not None
+            n_wide, starts = wide.red_rows.shape[0], wide.tile_src.numpy()
+            assert starts[0] == 0 and starts[-1] == N_USERS and (np.diff(starts) >= 0).all()
+            assert wide.staged == np.diff(starts).max() <= 1024 // (4 * K) and wide.hot_edges == len(wide.vals)
+            assert (len(starts) - 1) % blocks == 0 and len(starts) - 1 >= graph.tile_count(N_USERS, K, blocks)
+            items, vrows = wide.tile_item.numpy(), wide.work_row.numpy()
+            assert items[0] == 0 and items[-1] == len(vrows) - 1
+            for t in range(len(starts) - 1):
+                assert ((vrows[items[t] : items[t + 1]] // n_wide) == t).all()
+                lo, hi = wide.rowptr[t * n_wide], wide.rowptr[(t + 1) * n_wide]
+                assert (wide.src[lo:hi].numpy() < starts[t + 1] - starts[t]).all()
+        _close(_kernel_sum(parts, torch.from_numpy(x), op.shape[0]), want)
+
+
+def test_wide_part_gives_way_where_no_tile_fits(monkeypatch):
+    """A run of users with no edge to a wide item, longer than a tile may
+    hold, cannot be cut by equal-edge tiles: the item side is one launch,
+    still equal to the plain product."""
+    monkeypatch.setattr(graph, "_TILE_BYTES", 4 * K * 20)
+    monkeypatch.setattr(graph, "_WIDE_EDGES", 40)
+    rng = np.random.default_rng(5)
+    # item 0 (80 edges) is the one wide row at 40 edges a block of 2: users 0-39 and 100-139 rate
+    # it, users 40-99 (60 rows, a tile holds 20) do not
+    rows, cols = [], []
+    for u in range(140):
+        items = rng.choice(np.arange(1, 30), 3, replace=False) if 40 <= u < 100 else np.r_[0, rng.choice(np.arange(1, 30), 2, replace=False)]
+        items = np.sort(items)
+        rows += [u] * len(items)
+        cols += list(items)
+    rows, cols = np.array(rows, np.int32), np.array(cols, np.int32)
+    vals = rng.uniform(0.1, 1.0, len(rows)).astype(np.float32)
+    a_t = graph._csr_pair(sorted_conv(rows, cols, vals, 140, 30, device="cpu"))[1]
+    parts = a_t.plan(K, 2)
+    assert len(parts) == 1 and parts[0].tile_src is None
+    u = torch.from_numpy(rng.standard_normal((140, K)).astype(np.float32))
+    want = spmm_plain(torch.from_numpy(vals), torch.from_numpy(rows).long(), torch.from_numpy(cols).long(), u, 30)
+    _close(_kernel_sum(parts, u, 30), want)
+    # tiles of 80 rows hold the run: item 0 is summed tile by tile
+    monkeypatch.setattr(graph, "_TILE_BYTES", 4 * K * 80)
+    parts = graph._csr_pair(sorted_conv(rows, cols, vals, 140, 30, device="cpu"))[1].plan(K, 2)
+    assert len(parts) == 2 and parts[1].red_rows.tolist() == [0]
+    _close(_kernel_sum(parts, u, 30), want)
+
+
+def test_tiles_follow_the_table_and_the_grid():
+    # ML-20M's user table at k = 64 is 35 MB: 2 tiles a block of 132, each within 200 KB
+    assert graph.tile_count(138_493, 64, 132) == 264
+    assert graph.tile_count(138_493, 16, 132) == 132
+    assert graph.tile_count(26_744, 64, 132) == 132
+    assert graph.tile_count(138_493, 256, 132) == graph.tile_count(138_493, 128, 132) == 396
+
+
+def test_products_count_their_hot_edges_on_the_cpu(data):
+    from lkpy_tpu_torch.logging import counts, record_spans
+
+    rows, cols, vals, u, i = data[:5]
+    conv = sorted_conv(rows, cols, vals, N_USERS, N_ITEMS, device="cpu")
+    before = counts()
+    with record_spans():
+        propagate(torch.from_numpy(u), torch.from_numpy(i), conv, np.full(3, 1 / 3, dtype=np.float32))
+    added = {k: counts().get(k, 0) - before.get(k, 0) for k in ("graph.spmm_products", "graph.spmm_edges", "graph.spmm_hot_edges")}
+    assert added == {"graph.spmm_products": 4, "graph.spmm_edges": 4 * len(vals), "graph.spmm_hot_edges": 0}
