@@ -3030,19 +3030,32 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     ds, test_u, test_i = split["ds"], split["test_u"], split["test_i"]
     csr = ds.interaction_matrix().csr(None)
     nnz = csr.nnz
+    from lkpy_tpu_torch.ops import graph
+
     scorer = LightGCNScorer(LightGCNScorer.validate_config({"embedding_size": GRAD_FEATURES, "batch_size": GRAD_BATCH, "epochs": 2}))
-    zero_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     trainer = scorer.create_trainer(ds, TrainingOptions(rng=42))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t
     torch.cuda.reset_peak_memory_stats()
+    # the launches of the path's own two epochs, read before anything else runs
+    zero_counts()
     times, losses = timed_epochs(trainer, 1)
     split["grad_first"]["lightgcn"] = first_epoch(trainer, times, losses)
     more = timed_epochs(trainer, 1)
+    launches = read_counts()
     times, losses = times + more[0], losses + more[1]
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # each step: K products forward and K backward in each orientation, each the launches of its plan
+    a, a_t = graph._csr_pair(trainer.conv)
+    per_product = {"su": len(a.launches(GRAD_FEATURES)[0]), "si": len(a_t.launches(GRAD_FEATURES)[0])}
+    n_ex = trainer.examples.nnz
+    steps = 2 * -(-n_ex // min(trainer.config.batch_size, n_ex))
+    want = steps * 2 * (len(trainer.blend) - 1) * (per_product["su"] + per_product["si"])
+    log(f"LightGCN's two epochs: {steps} steps, launches {launches}; {per_product} launches a product")
+    if launches["spmm"] != want or any(v for name, v in launches.items() if name != "spmm"):
+        raise AssertionError(f"LightGCN's epochs launched {launches}, not {want} of the SpMM alone")
     log(
         f"LightGCN (k={GRAD_FEATURES}, batch {GRAD_BATCH}, {len(trainer.blend) - 1} layers): set-up {setup_s:.3f}s, "
         f"warm epoch {times[0]:.3f}s, timed epoch {times[1]:.3f}s -> {nnz / times[1]:.4e} examples/s; "
@@ -3097,14 +3110,17 @@ def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     directions = spmm_directions(trainer, {"su": bound_u, "si": bound_i})
     trainer.finalize()
     nd, serve_s = recommend_ndcg(scorer, ds, test_u, test_i)
-    launches = read_counts()
-    log(f"LightGCN NDCG@10 after 2 epochs: {nd:.4f} (device_recommend {serve_s:.3f}s); launches {launches}")
+    rest = {name: v - launches[name] for name, v in read_counts().items()}
+    log(f"LightGCN NDCG@10 after 2 epochs: {nd:.4f} (device_recommend {serve_s:.3f}s); launches after the epochs {rest}")
+    if any(v for name, v in rest.items() if name != "spmm"):
+        raise AssertionError(f"LightGCN's profile, checks, finalize or serving launched a kernel other than the SpMM: {rest}")
     routes = propagate_routes(trainer)
     split["grad_first"]["lightgcn"]["step"] = launches_a_step(trainer, dev, "LightGCN unsharded")
     out = dict(
         setup_s=setup_s, epoch_s=times, examples_per_s=nnz / times[1], losses=losses, peak_gib=peak,
         steps_wall_ms=wall, steps_busy_ms=busy, spmm_ms_per_direction=per_direction,
-        spmm_bound_ms=[bound_u[0], bound_i[0]], spmm_directions=directions, propagate_err=err, ndcg=nd, **routes,
+        spmm_bound_ms=[bound_u[0], bound_i[0]], spmm_directions=directions, propagate_err=err, ndcg=nd,
+        epoch_launches=launches["spmm"], launches_a_product=per_product, **routes,
     )  # fmt: skip
     return launches, out
 

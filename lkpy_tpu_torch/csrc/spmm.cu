@@ -22,13 +22,13 @@
 // the design is about the reuse of rows inside an SM.
 //
 // Design.  The plan (ops/graph.py) is built once a graph, on the card.
-// * SU, kHot: item degrees are skewed (ML-20M's 800 most-rated items hold
-//   77 % of the edges).  Each block first copies the rows of the h
-//   most-rated items, the hot set, into shared memory with cp.async, once a
-//   launch; the plan orders each user row's edges hot first, a hot edge
-//   holding its slot in the hot set and a cold edge its item, and split[r]
-//   is the row's first cold edge.  The hot edges read shared memory, the
-//   cold ones the read-only path (L1, then L2), in two loops.
+// * SU, kPull: each user row's edges gather item rows through the read-only
+//   path.  Item degrees are skewed (ML-20M's 800 most-rated items hold 77 %
+//   of the edges), and the rows of the most-rated items stay in each SM's
+//   L1, to which the launch gives all its shared memory.  A mode that copied
+//   those 800 rows into shared memory first was 7 % faster at k = 64 (0.49
+//   against 0.53 ms a product, about 2 % of a LightGCN step) and 7 % slower
+//   at k = 16 (0.19 against 0.18 ms), so SU stages nothing.
 // * SI, kTile for the wide rows: user degrees are flat, so no user row is
 //   hot for the whole card, but a run of a few hundred consecutive users is
 //   hot for the most-rated items.  The plan splits SI in two launches.  The
@@ -63,21 +63,21 @@
 //   warp an edge); k above 128 (32 in the scalar form) runs as launches over
 //   column slices.
 //
-// Contract (lkt_spmm_f32): rowptr (rows + 1) int64; split (rows) int64 or
-// null when h == 0; src (nnz) int32, val (nnz) f32; the work items
+// Contract (lkt_spmm_f32): rowptr (rows + 1) int64; src (nnz) int32, val
+// (nnz) f32; the work items
 // work_edge and work_row (n_work + 1) int64 and work_slot (n_work) int32
 // (-1 for a run of whole rows, else the item's scratch row); row_slot
 // (rows) int32 or null: each row's scratch row, else rows are written to
 // out; with tiles > 0, tile_src (tiles + 1) int64, each tile's first source
 // row, tile_item (tiles + 1) int64, its first work item, src counts from
-// the tile's first row, h is the most rows a tile and blocks the grid (the
+// the tile's first row, staged is the most rows a tile and blocks the grid (the
 // tiles split evenly over it); red_rows (n_red) and red_ptr (n_red + 1)
 // int64: out[red_rows[j]] is the sum of scratch rows red_ptr[j] ..
 // red_ptr[j + 1] - 1; partial (scratch rows x width) f32; x (n_src rows,
-// ld ldx) f32 and out (ld ldo) f32, unit stride in a row; hot (h) int32
-// source rows or null.  vec 4 needs width, ldx and ldo multiples of 4 and x,
-// out and partial 16-byte aligned, and width <= 128; vec 1 needs width <=
-// 32.  h * width * 4 bytes must fit the card's shared memory a block.
+// ld ldx) f32 and out (ld ldo) f32, unit stride in a row.  vec 4 needs
+// width, ldx and ldo multiples of 4 and x, out and partial 16-byte aligned,
+// and width <= 128; vec 1 needs width <= 32.  staged * width * 4 bytes must
+// fit the card's shared memory a block.
 //
 // Plain C interface, built with nvcc and loaded with ctypes
 // (ops/_build.py); the Python wrapper is ops/graph.py.
@@ -92,7 +92,7 @@ constexpr int kThreads = 512;
 constexpr unsigned kFull = 0xffffffffu;
 
 // where a launch's source rows come from
-enum Mode { kPull = 0, kHot = 1, kTile = 2 };
+enum Mode { kPull = 0, kTile = 1 };
 
 template <int VEC>
 struct Vec;
@@ -136,7 +136,6 @@ struct Vec<1> {
 
 struct Args {
   const long long* rowptr;
-  const long long* split;
   const int* src;
   const float* val;
   long long nnz;
@@ -151,8 +150,7 @@ struct Args {
   float* partial;
   const float* x;
   long long ldx;
-  const int* hot;
-  int h;
+  int staged;
   float* out;
   long long ldo;
   int width;
@@ -228,42 +226,29 @@ __device__ __forceinline__ void add_edges(const Args& p, const float* rows, long
 }
 
 // The sum of the edges [a, b) of one row in the lanes of group 0 (the other
-// groups' sums folded in, in a fixed order): in kHot the edges before
-// `cold` from the hot rows in shared memory, in kTile all from the tile's
-// rows there.
+// groups' sums folded in, in a fixed order): in kTile from the tile's rows
+// in shared memory, in kPull through the read-only path.
 template <int VEC, int L, int MODE>
 __device__ __forceinline__ typename Vec<VEC>::T row_sum(const Args& p, const float* rows, long long a, long long b,
-                                                        long long end, long long cold, int grp, int col, bool live,
-                                                        int lane, int& idx, float& v) {
+                                                        long long end, int grp, int col, bool live, int lane, int& idx,
+                                                        float& v) {
   using V = Vec<VEC>;
   typename V::T acc = V::zero();
-  if constexpr (MODE == kTile) {
-    add_edges<VEC, L, true>(p, rows, a, b, end, grp, col, live, lane, idx, v, acc);
-  } else if constexpr (MODE == kHot) {
-    // the hot edges, then the cold ones (a segment may start past its row's
-    // hot edges): one kind of load in each loop
-    const long long c = cold < a ? a : (cold < b ? cold : b);
-    add_edges<VEC, L, true>(p, rows, a, c, c < b ? b : end, grp, col, live, lane, idx, v, acc);
-    add_edges<VEC, L, false>(p, rows, c, b, end, grp, col, live, lane, idx, v, acc);
-  } else {
-    add_edges<VEC, L, false>(p, rows, a, b, end, grp, col, live, lane, idx, v, acc);
-  }
+  add_edges<VEC, L, MODE == kTile>(p, rows, a, b, end, grp, col, live, lane, idx, v, acc);
 #pragma unroll
   for (int m = L; m < 32; m <<= 1) V::add(acc, V::shfl_xor(acc, m));
   return acc;
 }
 
-// Copies source rows into shared memory: slot s holds x[hot[s]] (kHot) or
-// x[first + s] (kTile), for s < count.
+// Copies source rows into shared memory: slot s holds x[first + s], for s < count.
 template <int VEC>
-__device__ __forceinline__ void stage(const Args& p, float* rows, const int* hot, long long first, int count) {
+__device__ __forceinline__ void stage(const Args& p, float* rows, long long first, int count) {
   const int per_row = p.width / VEC;
   const int total = count * per_row;
   for (int q = threadIdx.x; q < total; q += kThreads) {
     const int r = q / per_row;
     const int c = q - r * per_row;
-    const long long row = hot ? static_cast<long long>(__ldg(hot + r)) : first + r;
-    const float* g = p.x + row * p.ldx + c * VEC;
+    const float* g = p.x + (first + r) * p.ldx + c * VEC;
     float* s = rows + r * p.width + c * VEC;
     if constexpr (VEC == 4) {
       const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
@@ -296,25 +281,20 @@ __device__ __forceinline__ void run_items(const Args& p, const float* rows, int*
     load_batch(p, e_lo, e_hi, lane, idx, v);
     if (slot >= 0) {
       // one segment of a long row, into its scratch row
-      const long long cold = MODE == kHot ? p.split[p.work_row[i]] : e_hi;
-      const T acc = row_sum<VEC, L, MODE>(p, rows, e_lo, e_hi, e_hi, cold, grp, col, live, lane, idx, v);
+      const T acc = row_sum<VEC, L, MODE>(p, rows, e_lo, e_hi, e_hi, grp, col, live, lane, idx, v);
       if (grp == 0 && live) V::st(p.partial + static_cast<long long>(slot) * p.width + col * VEC, acc);
     } else {
-      // a run of whole rows, each row's end and first cold edge read a row ahead
+      // a run of whole rows, each row's end read a row ahead
       const long long r0 = p.work_row[i], r_end = p.work_row[i + 1];
       long long a = e_lo;
       long long b = r0 < r_end ? p.rowptr[r0 + 1] : 0;
-      long long cold = MODE == kHot && r0 < r_end ? p.split[r0] : 0;
       for (long long r = r0; r < r_end; ++r) {
-        const bool more = r + 1 < r_end;
-        const long long b_next = more ? p.rowptr[r + 2] : 0;
-        const long long cold_next = MODE == kHot && more ? p.split[r + 1] : 0;
-        const T acc = row_sum<VEC, L, MODE>(p, rows, a, b, e_hi, cold, grp, col, live, lane, idx, v);
+        const long long b_next = r + 1 < r_end ? p.rowptr[r + 2] : 0;
+        const T acc = row_sum<VEC, L, MODE>(p, rows, a, b, e_hi, grp, col, live, lane, idx, v);
         float* dst = p.row_slot ? p.partial + static_cast<long long>(p.row_slot[r]) * p.width : p.out + r * p.ldo;
         if (grp == 0 && live) V::st(dst + col * VEC, acc);
         a = b;
         b = b_next;
-        cold = cold_next;
       }
     }
   }
@@ -336,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 1) spmm_kernel(Args p) {
     for (int t = static_cast<int>(static_cast<long long>(p.tiles) * blockIdx.x / gridDim.x); t < t_end; ++t) {
       __syncthreads();  // the previous tile's rows are no longer read
       const long long first = p.tile_src[t];
-      stage<VEC>(p, rows, nullptr, first, static_cast<int>(p.tile_src[t + 1] - first));
+      stage<VEC>(p, rows, first, static_cast<int>(p.tile_src[t + 1] - first));
       if (threadIdx.x == 0) {
         next = static_cast<int>(p.tile_item[t]);
         last = static_cast<int>(p.tile_item[t + 1]);
@@ -352,7 +332,6 @@ __global__ void __launch_bounds__(kThreads, 1) spmm_kernel(Args p) {
                                   ? p.n_work
                                   : lower_bound(p.work_edge, 0, p.n_work, p.nnz * (blockIdx.x + 1) / gridDim.x));
     }
-    if constexpr (MODE == kHot) stage<VEC>(p, rows, p.hot, 0, p.h);
     __syncthreads();
     run_items<VEC, L, MODE>(p, rows, &next, last, lane, grp, col, live);
   }
@@ -391,7 +370,7 @@ __global__ void __launch_bounds__(256) spmm_reduce_kernel(const float* __restric
 
 template <int VEC, int L, int MODE>
 int launch_main(const Args& p, int blocks, cudaStream_t stream) {
-  const size_t smem = MODE == kPull ? 0 : static_cast<size_t>(p.h) * p.width * sizeof(float);
+  const size_t smem = MODE == kPull ? 0 : static_cast<size_t>(p.staged) * p.width * sizeof(float);
   auto kernel = spmm_kernel<VEC, L, MODE>;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -439,26 +418,23 @@ int dispatch_lanes(const Args& p, int lanes, int blocks, cudaStream_t stream) {
 template <int VEC>
 int dispatch_mode(const Args& p, int lanes, int blocks, cudaStream_t stream) {
   if (p.tiles > 0) return dispatch_lanes<VEC, kTile>(p, lanes, blocks, stream);
-  if (p.h > 0) return dispatch_lanes<VEC, kHot>(p, lanes, blocks, stream);
   return dispatch_lanes<VEC, kPull>(p, lanes, blocks, stream);
 }
 
 }  // namespace
 
 // out = A @ x for one part of one orientation of the adjacency (see the head
-// of this file): tiles > 0 stages each tile's source rows (h rows at most a
-// tile), else h > 0 stages the hot rows; blocks > 0 fixes the grid (else as
-// many as fit).  Returns a CUDA error code (0 when the launches were
-// accepted).
-extern "C" int lkt_spmm_f32(const long long* rowptr, const long long* split, const int* src, const float* val,
-                            long long nnz, const long long* work_edge, const long long* work_row, const int* work_slot,
-                            long long n_work, const int* row_slot, const long long* tile_src, const long long* tile_item,
-                            int tiles, const long long* red_rows, const long long* red_ptr, long long n_red,
-                            float* partial, const float* x, long long ldx, const int* hot, int h, float* out,
-                            long long ldo, int width, int vec, int blocks, void* stream) {
-  if (n_work < 1 || n_work > 0x7ffffff0LL || width < 1 || h < 0 || tiles < 0 ||
-      (tiles == 0 && h > 0 && (split == nullptr || hot == nullptr)) ||
-      (tiles > 0 && (tile_src == nullptr || tile_item == nullptr || blocks < 1))) {
+// of this file): tiles > 0 stages each tile's source rows (`staged` rows at
+// most a tile); blocks > 0 fixes the grid (else as many as fit).  Returns a
+// CUDA error code (0 when the launches were accepted).
+extern "C" int lkt_spmm_f32(const long long* rowptr, const int* src, const float* val, long long nnz,
+                            const long long* work_edge, const long long* work_row, const int* work_slot, long long n_work,
+                            const int* row_slot, const long long* tile_src, const long long* tile_item, int tiles,
+                            const long long* red_rows, const long long* red_ptr, long long n_red, float* partial,
+                            const float* x, long long ldx, int staged, float* out, long long ldo, int width, int vec,
+                            int blocks, void* stream) {
+  if (n_work < 1 || n_work > 0x7ffffff0LL || width < 1 || tiles < 0 ||
+      (tiles > 0 && (tile_src == nullptr || tile_item == nullptr || blocks < 1 || staged < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* q) { return reinterpret_cast<std::uintptr_t>(q) % 16 == 0; };
@@ -469,8 +445,8 @@ extern "C" int lkt_spmm_f32(const long long* rowptr, const long long* split, con
   } else if (vec != 1 || width > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args p{rowptr,    split, src,   val,     nnz, work_edge, work_row, work_slot, n_work, row_slot, tile_src,
-               tile_item, tiles, partial, x,     ldx, hot,       h,        out,       ldo,    width};
+  const Args p{rowptr, src,   val,     nnz, work_edge, work_row, work_slot, n_work, row_slot,
+               tile_src, tile_item, tiles, partial, x, ldx, staged, out, ldo, width};
   const auto s = static_cast<cudaStream_t>(stream);
   int lanes = 32;
   if (vec == 4) {

@@ -12,10 +12,11 @@ side, the column-sorted copy of :func:`sorted_conv` the item side
 (:func:`_csr_pair`, built once per 8-tuple and kept).  On the card each
 product is :func:`spmm`, the hand-written kernel of ``csrc/spmm.cu``, from a
 plan built once per graph on the card (:class:`SpmmPlan`): the user side
-keeps the rows of the most-rated items in each block's shared memory and
-reads each user row's hot edges there.  On the CPU it is ``torch.sparse.mm``
-of the CSR.  :class:`_CSRMM`, a ``torch.autograd.Function``, multiplies by
-the other orientation in its backward, for the reason the JAX package gives
+gathers item rows through the read-only path, and the item side sums its
+most-rated items from tiles of user rows staged in each block's shared
+memory.  On the CPU it is ``torch.sparse.mm`` of the CSR.  :class:`_CSRMM`,
+a ``torch.autograd.Function``, multiplies by the other orientation in its
+backward, for the reason the JAX package gives
 its dense product a custom VJP: no transposed copy of the edges is built per
 step, and autograd keeps only the ``(n, k)`` layer outputs, never an
 ``(nnz, k)`` tensor.  :func:`spmm_plain` (``index_add_`` of ``vals[:, None]
@@ -49,7 +50,6 @@ __all__ = [
     "propagate",
     "propagate_dense",
     "SpmmPlan",
-    "hot_count",
     "sorted_conv",
     "spmm",
     "spmm_plain",
@@ -79,12 +79,6 @@ def spmm_plain(vals, src_idx, dst_idx, src, n_dst):
     return out.index_add_(0, dst_idx, vals[:, None] * src[src_idx])
 
 
-#: shared memory a block of the SU kernel keeps for the hot rows: 800 rows at k = 64
-_HOT_BYTES = 204_800
-#: the most hot rows: past the 800 most-rated items a row is not read often
-#: enough to pay for its copy into every block (at k = 16, 3,200 rows took
-#: 0.254 ms a product where 800 took 0.199)
-_HOT_ROWS = 800
 #: edges a work item of the kernel's plan holds at most in a long row's segment
 #: (a run of short rows holds under twice as many)
 _SEG = 1024
@@ -99,14 +93,6 @@ _WIDE_EDGES = 8
 #: edges a work item of SI's wide part holds at most in a segment, smaller than
 #: :data:`_SEG` so that a tile's items end together
 _TILE_SEG = 256
-
-
-def hot_count(n_src: int, k: int) -> int:
-    """h, the source rows whose rows each block of the SU kernel keeps in
-    shared memory at table width ``k``: as many as :data:`_HOT_BYTES` holds
-    at the width of one launch, at most :data:`_HOT_ROWS` and the table's
-    rows."""
-    return min(n_src, _HOT_ROWS, _HOT_BYTES // (4 * max(_width(k), 1)))
 
 
 def tile_count(n_src: int, k: int, blocks: int) -> int:
@@ -124,27 +110,27 @@ def _width(k: int) -> int:
 def _rowptr(dst_sorted: torch.Tensor, n: int) -> torch.Tensor:
     """The (n + 1) int64 row pointers of edges sorted by destination."""
     ptr = torch.zeros(n + 1, dtype=torch.int64, device=dst_sorted.device)
-    torch.cumsum(torch.bincount(dst_sorted.long(), minlength=n)[:n], 0, out=ptr[1:])
+    torch.cumsum(torch.bincount(dst_sorted, minlength=n)[:n], 0, out=ptr[1:])
     return ptr
 
 
 def _dst(rowptr: torch.Tensor) -> torch.Tensor:
-    """Each edge's row."""
+    """Each edge's row, int32 (the tables' rows are numbered in int32)."""
     n = rowptr.shape[0] - 1
-    return torch.repeat_interleave(torch.arange(n, device=rowptr.device), rowptr.diff(), output_size=int(rowptr[-1]))
+    rows = torch.arange(n, dtype=torch.int32, device=rowptr.device)
+    return torch.repeat_interleave(rows, rowptr.diff(), output_size=int(rowptr[-1]))
 
 
 class SpmmPlan(NamedTuple):
     """One launch of the kernel of ``csrc/spmm.cu``: a part of one
     orientation of the adjacency, in the form the kernel reads.
 
-    ``src`` and ``vals`` are the part's edges in row order, each row's hot
-    edges first where there is a hot set: a hot edge's ``src`` is its slot
-    in ``hot``, a cold edge's its source row; ``split[r]`` is row ``r``'s
-    first cold edge.  ``hot`` holds the ``h`` source rows of highest degree,
-    by falling degree and rising number.  The rows are the destination rows,
-    or, in a tiled part, the tile-major rows ``t·n + j`` of its ``n`` rows
-    in each tile ``t`` of source rows.  The work items tile the edges: item
+    ``src`` and ``vals`` are the part's edges in row order, and
+    ``hot_edges`` those whose source rows the kernel reads from shared
+    memory (the counter ``graph.spmm_hot_edges``): all of a tiled part's,
+    none of another's.  The rows are the destination rows, or, in a tiled
+    part, the tile-major rows ``t·n + j`` of its ``n`` rows in each tile
+    ``t`` of source rows.  The work items tile the edges: item
     ``i`` covers edges ``work_edge[i]`` to ``work_edge[i + 1]``; with
     ``work_slot[i] == -1`` they are the whole rows ``work_row[i]`` to
     ``work_row[i + 1]``, each written out (to scratch row ``row_slot[r]`` in
@@ -162,8 +148,6 @@ class SpmmPlan(NamedTuple):
     rowptr: torch.Tensor
     src: torch.Tensor
     vals: torch.Tensor
-    split: torch.Tensor | None
-    hot: torch.Tensor | None
     hot_edges: int
     blocks: int
     work_edge: torch.Tensor
@@ -178,9 +162,7 @@ class SpmmPlan(NamedTuple):
     staged: int = 0
 
 
-def _part(
-    rowptr, src, vals, n, *, split=None, hot=None, hot_edges=0, blocks=0, tiles=1, out_rows=None, tile_src=None, seg=None
-) -> SpmmPlan:
+def _part(rowptr, src, vals, n, *, hot_edges=0, blocks=0, tiles=1, out_rows=None, tile_src=None, seg=None) -> SpmmPlan:
     """A :class:`SpmmPlan` over the ``tiles · n`` rows of ``rowptr``: work
     items of runs of consecutive rows of one tile whose first edges lie in
     one window of ``seg`` edges (:data:`_SEG` unless given; and in one block
@@ -227,7 +209,7 @@ def _part(
         tile_item = torch.searchsorted(rows, torch.arange(tiles + 1, device=dev) * n)
         staged = int(tile_src.diff().max())
     return SpmmPlan(
-        rowptr, src.to(torch.int32), vals, split, hot, hot_edges, blocks, work_edge, work_row,
+        rowptr, src.to(torch.int32), vals, hot_edges, blocks, work_edge, work_row,
         work_slot.to(torch.int32), row_slot, red_rows, red_ptr, int(red_ptr[-1]), tile_src, tile_item, staged,
     )  # fmt: skip
 
@@ -240,7 +222,9 @@ def _wide_and_narrow(rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor
     memory; the tiles' sums are then added up.  The other rows are summed
     whole, the wide ones left zero for the reduction to write.  One part
     where no row is wide, or where no count of tiles up to eight times the
-    first keeps every tile's rows within :data:`_TILE_BYTES`."""
+    first keeps every tile's rows within :data:`_TILE_BYTES`.  Edge-long
+    temporaries are int32 and dropped as soon as they are used: at 20 M
+    edges each is 80 MB of the card's memory."""
     n = rowptr.shape[0] - 1
     tiles = tile_count(n_src, k, blocks)
     wide = rowptr.diff() >= _WIDE_EDGES * blocks
@@ -250,8 +234,10 @@ def _wide_and_narrow(rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor
     dst = _dst(rowptr)
     on = wide[dst]
     narrow = _part(_rowptr(dst[~on], n), src[~on], vals[~on], n)
-    j = (torch.cumsum(wide, 0) - 1)[dst[on]]
-    s, v = src[on].long(), vals[on]
+    j = (torch.cumsum(wide, 0, dtype=torch.int32) - 1)[dst[on]]
+    del dst
+    s, v = src[on].to(torch.int32), vals[on]
+    del on
     per_src = torch.bincount(s, minlength=n_src)
     before = torch.cumsum(per_src, 0) - per_src
     cap = _TILE_BYTES // (4 * _width(k))
@@ -264,36 +250,19 @@ def _wide_and_narrow(rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor
     else:
         # a run of source rows without wide edges wider than a tile: no tiles
         return [_part(rowptr, src, vals, n)]
-    tile = of_src[s]
-    key = tile * n_wide + j
+    key = of_src.to(torch.int32 if tiles * n_wide < 2**31 else torch.int64)[s] * n_wide + j
+    del j
     perm = torch.argsort(key, stable=True)
+    key = key[perm]
     # columns count from the tile's first source row
-    s = s[perm] - tile_src[tile[perm]]
+    s = s[perm] - tile_src.to(torch.int32)[key // n_wide]
+    v = v[perm]
+    del perm
     wide_part = _part(
-        _rowptr(key[perm], tiles * n_wide), s, v[perm], n_wide, blocks=blocks, tiles=tiles,
+        _rowptr(key, tiles * n_wide), s, v, n_wide, blocks=blocks, tiles=tiles,
         out_rows=torch.nonzero(wide).flatten(), tile_src=tile_src, hot_edges=s.shape[0], seg=_TILE_SEG,
     )  # fmt: skip
     return [narrow, wide_part]
-
-
-def _hot_first(rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, n_src: int, h: int):
-    """Each row's edges with those of the ``h`` source rows of highest degree
-    (counted from ``src``; ties by number) first: the reordered ``src`` (a
-    hot edge's slot, a cold edge's source row) and ``vals``, each row's
-    first cold edge, the hot rows and the hot edges' count."""
-    dev = src.device
-    n = rowptr.shape[0] - 1
-    src = src.long()
-    order = torch.argsort(torch.bincount(src, minlength=n_src), descending=True, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.shape[0], device=dev)
-    slot = rank[src]
-    is_hot = slot < h
-    dst = _dst(rowptr)
-    perm = torch.argsort(dst * 2 + (~is_hot).long(), stable=True)
-    split = rowptr[:-1] + torch.bincount(dst[is_hot], minlength=n)[:n]
-    out_src = torch.where(is_hot, slot, src)[perm].to(torch.int32)
-    return out_src, vals[perm], split, order[:h].to(torch.int32), int(is_hot.sum())
 
 
 def _ptr(t: torch.Tensor | None) -> int:
@@ -303,18 +272,18 @@ def _ptr(t: torch.Tensor | None) -> int:
 class _Adjacency:
     """One orientation of the adjacency, an ``(n_dst, n_src)`` matrix: the
     row pointers of its destination rows and, in CSR order, each edge's
-    source row and value.  ``stages_hot`` marks the orientation whose
-    source is the item table (SU), where the kernel keeps the hot rows in
-    shared memory.  The CSR tensor of the CPU's product and the kernel's
-    plans (one a hot set, grid and launch width) are built at first use and
+    source row and value.  ``tiled`` marks the orientation whose source is
+    the user table (SI), whose wide rows the kernel sums from tiles of source
+    rows in shared memory.  The CSR tensor of the CPU's product and the
+    kernel's plans (one a grid and launch width) are built at first use and
     kept."""
 
-    def __init__(self, rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, n_src: int, stages_hot: bool):
+    def __init__(self, rowptr: torch.Tensor, src: torch.Tensor, vals: torch.Tensor, n_src: int, tiled: bool):
         self.rowptr, self.src, self.vals = rowptr, src, vals
         self.shape = (rowptr.shape[0] - 1, n_src)
-        self.stages_hot = stages_hot
+        self.tiled = tiled
         self._csr = None
-        self._plans: dict[tuple[int, int, int], list[SpmmPlan]] = {}
+        self._plans: dict[tuple[int, int], list[SpmmPlan]] = {}
         self._launches: dict[int, tuple[list[tuple], int]] = {}
         self._scratch: list[torch.Tensor] = []
 
@@ -336,7 +305,7 @@ class _Adjacency:
     def launches(self, k: int) -> tuple[list[tuple], int]:
         """The kernel's calls at table width ``k`` (:meth:`plan`'s parts for
         each column slice), each as its column, width, the arguments before
-        the table's as integers, the hot rows, their count and the grid; and
+        the table's as integers, the most rows a tile stages and the grid; and
         the edges a product serves from shared memory.  Built once a width,
         with each call's scratch rows, which the products of this operator
         share in their stream's order."""
@@ -351,34 +320,29 @@ class _Adjacency:
                     partial = torch.empty((p.n_slots, width), dtype=torch.float32, device=self.rowptr.device)
                     self._scratch.append(partial)
                     head = (
-                        _ptr(p.rowptr), _ptr(p.split), _ptr(p.src), _ptr(p.vals), p.src.shape[0],
+                        _ptr(p.rowptr), _ptr(p.src), _ptr(p.vals), p.src.shape[0],
                         _ptr(p.work_edge), _ptr(p.work_row), _ptr(p.work_slot), p.work_slot.shape[0],
                         _ptr(p.row_slot), _ptr(p.tile_src), _ptr(p.tile_item), 0 if p.tile_src is None else p.tile_src.shape[0] - 1,
                         _ptr(p.red_rows), _ptr(p.red_ptr), p.red_rows.shape[0], _ptr(partial),
                     )  # fmt: skip
-                    h = p.staged if p.tile_src is not None else (0 if p.hot is None else p.hot.shape[0])
-                    calls.append((c0, width, head, _ptr(p.hot), h, p.blocks))
+                    calls.append((c0, width, head, p.staged, p.blocks))
             got = self._launches[k] = (calls, sum(p.hot_edges for p in parts))
         return got
 
     def plan(self, k: int, blocks: int | None = None) -> list[SpmmPlan]:
         """The kernel's launches at table width ``k``, in order.  The item
-        table's side (SU) is one launch whose hot set follows ``k``
-        (:func:`hot_count`); the other (SI), on the card, a launch of the
-        narrow rows and a tiled one of the wide rows, for a grid of
-        ``blocks`` (the card's SMs unless given; off the card one launch
-        unless given)."""
+        table's side (SU) is one launch of every row, the same at every
+        ``k``; the other (SI), on the card, a launch of the narrow rows and a
+        tiled one of the wide rows, for a grid of ``blocks`` (the card's SMs
+        unless given; off the card one launch unless given)."""
         if blocks is None:
             dev = self.rowptr.device
             blocks = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 0
-        h = hot_count(self.shape[1], k) if self.stages_hot else 0
-        key = (h, 0 if self.stages_hot else blocks, _width(k))
+        tiled = bool(self.tiled and blocks)
+        key = (blocks, _width(k)) if tiled else (0, 0)
         plan = self._plans.get(key)
         if plan is None:
-            if h:
-                src, vals, split, hot, hot_edges = _hot_first(self.rowptr, self.src, self.vals, self.shape[1], h)
-                plan = [_part(self.rowptr, src, vals, self.shape[0], split=split, hot=hot, hot_edges=hot_edges)]
-            elif blocks and not self.stages_hot:
+            if tiled:
                 plan = _wide_and_narrow(self.rowptr, self.src, self.vals, self.shape[1], k, blocks)
             else:
                 plan = [_part(self.rowptr, self.src, self.vals, self.shape[0])]
@@ -411,8 +375,8 @@ def _csr_pair(conv) -> tuple[_Adjacency, _Adjacency]:
         by_col = by_col[torch.argsort(cols[by_col], stable=True)]
         rows, cols, vals, rows_c, cols_c, vals_c = rows[by_row], cols[by_row], vals[by_row], rows[by_col], cols[by_col], vals[by_col]
     pair = (
-        _Adjacency(_rowptr(rows, n_users), cols, vals, n_items, True),
-        _Adjacency(_rowptr(cols_c, n_items), rows_c, vals_c, n_users, False),
+        _Adjacency(_rowptr(rows, n_users), cols, vals, n_items, False),
+        _Adjacency(_rowptr(cols_c, n_items), rows_c, vals_c, n_users, True),
     )
     if len(conv) == 8:
         _pairs[conv[0]] = pair
@@ -429,7 +393,7 @@ def _library():
 
         lib = load("spmm")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.lkt_spmm_f32.argtypes = [p, p, p, p, i64, p, p, p, i64, p, p, p, i32, p, p, i64, p, p, i64, p, i32, p, i64, i32, i32, i32, p]
+        lib.lkt_spmm_f32.argtypes = [p, p, p, i64, p, p, p, i64, p, p, p, i32, p, p, i64, p, p, i64, i32, p, i64, i32, i32, i32, p]
         lib.lkt_spmm_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -464,10 +428,10 @@ def spmm(a: _Adjacency, x: torch.Tensor) -> tuple[torch.Tensor, int]:
     xp, op = x.data_ptr(), out.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for c0, width, head, hot, h, blocks in calls:
-            err = lib.lkt_spmm_f32(*head, xp + 4 * c0, k, hot, h, op + 4 * c0, k, width, vec, blocks, stream)
+        for c0, width, head, staged, blocks in calls:
+            err = lib.lkt_spmm_f32(*head, xp + 4 * c0, k, staged, op + 4 * c0, k, width, vec, blocks, stream)
             if err != 0:
-                raise RuntimeError(f"spmm kernel launch failed with CUDA error {err} (shape {a.shape}, k={k}, h={h})")
+                raise RuntimeError(f"spmm kernel launch failed with CUDA error {err} (shape {a.shape}, k={k}, staged={staged})")
             spmm.launches += 1
     return out, hot_edges
 

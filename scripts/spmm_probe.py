@@ -3,21 +3,21 @@ Time and check the hand SpMM (``csrc/spmm.cu``) on the card at the LightGCN
 cell's shapes.
 
     python3 scripts/spmm_probe.py [--ptxas] [--reps N] [--k 64,16]
-        [--hot-bytes 0,65536] [--group 8,64] [--tile-seg 128,512] [--tile-bytes 65536,131072] [--wide 8,32]
+        [--group 8,64] [--tile-seg 128,512] [--tile-bytes 65536,131072] [--wide 8,32]
 
 Draws the graph of ``portbench/configs/lightgcn-ml20m.json`` on the card
 (MovieLens 20M's counts, 20,000,263 edges, LightGCN's symmetric weights),
-builds both orientations' plans (timed) and, for each table width and
-direction, SU (user rows from item rows, the hot item rows in shared
-memory) and SI (item rows from user rows), times in turns the kernel, the
+builds both orientations' plans (timed, with the device memory their build
+holds at its peak) and, for each table width and direction, SU (user rows
+from item rows) and SI (item rows from user rows, its wide rows from tiles
+of user rows in shared memory), times in turns the kernel, the
 plain version (``spmm_plain``, float32) and ``torch.sparse.mm`` of the same
 CSR matrix as the yardstick (the port never calls it on the card), each by
 CUDA events (``ms``, a call from the host) and the kernel also by the
 profiler (``device_ms``: every kernel named ``spmm``, as the benchmark's
 readers count them), beside the benchmark's bound
 (``portbench/roofline/graph.py``).  The kernel's output is held against
-``spmm_plain`` in float64.  ``--hot-bytes`` times SU with other shared
-memory for its hot rows, ``--group`` both with other rows a work item,
+``spmm_plain`` in float64.  ``--group`` times both with other rows a work item,
 ``--tile-seg``, ``--tile-bytes`` and ``--wide`` SI with other work items,
 tiles and wide rows (the kernel alone past the first setting).  One JSON
 line a (k, direction, setting) on standard output.  ``--ptxas`` first builds
@@ -117,7 +117,6 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=3141592653)
     ap.add_argument("--k", default="64,16")
-    ap.add_argument("--hot-bytes", default="", help="SU: comma-separated shared memory for hot rows (0: none)")
     ap.add_argument("--tile-bytes", default="", help="SI: comma-separated bytes of source rows a tile")
     ap.add_argument("--wide", default="", help="SI: comma-separated edges a block that make a row wide")
     ap.add_argument("--tile-seg", default="", help="SI: comma-separated edges a work item of the tiled part")
@@ -136,7 +135,7 @@ def main() -> None:
     print(f"graph: {conv[3]} users, {conv[4]} items, {conv[0].shape[0]} edges, drawn in {time.perf_counter() - t0:.1f} s", flush=True)
     nnz, n_rows = conv[0].shape[0], conv[3] + conv[4]
     groups = _values(args.group, graph._GROUP_ROWS)
-    settings = {"SU": [{"_HOT_BYTES": b, "_GROUP_ROWS": g} for b in _values(args.hot_bytes, graph._HOT_BYTES) for g in groups]}
+    settings = {"SU": [{"_GROUP_ROWS": g} for g in groups]}
     settings["SI"] = [
         {"_TILE_BYTES": t, "_WIDE_EDGES": w, "_TILE_SEG": ts, "_GROUP_ROWS": g}
         for g in groups
@@ -157,10 +156,13 @@ def main() -> None:
                 graph._pairs.clear()
                 op = graph._csr_pair(conv)[side]
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
                 t = time.perf_counter()
                 parts = op.plan(k)
                 torch.cuda.synchronize()
                 plan_s = time.perf_counter() - t
+                plan_peak, plan_kept = torch.cuda.max_memory_allocated() - held, torch.cuda.memory_allocated() - held
                 fns = {"kernel": lambda op=op, x=x: graph.spmm(op, x)}
                 if n_set == 0:
                     csr = op.csr()
@@ -181,11 +183,11 @@ def main() -> None:
                     k=k, direction=name, **setting, ms=mean["kernel"], device_ms=dev_ms, kernels=kernels,
                     plain_ms=mean.get("plain"), library_ms=mean.get("library"), times=times, bound_ms=bound_ms,
                     roofline_pct=100 * bound_ms / dev_ms, f64_err=err, library_f64_err=lib_err,
-                    h=sum(0 if p.hot is None else p.hot.shape[0] for p in parts), hot_edges=hot_edges,
+                    hot_edges=hot_edges,
                     hot_share=hot_edges / nnz, parts=len(parts), part_edges=[p.src.shape[0] for p in parts],
                     wide_rows=parts[-1].red_rows.shape[0] if len(parts) > 1 else 0,
                     work_items=[p.work_slot.shape[0] for p in parts], scratch_rows=[p.n_slots for p in parts],
-                    plan_s=plan_s, edges=nnz,
+                    plan_s=plan_s, plan_peak_bytes=plan_peak, plan_kept_bytes=plan_kept, edges=nnz,
                 )  # fmt: skip
                 print(json.dumps(rec), flush=True)
                 if err > 1e-5:

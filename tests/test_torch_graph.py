@@ -225,26 +225,25 @@ def _pair(data):
 
 def _kernel_sum(parts, x, n):
     """The plan's launches summed in order as the kernel sums them: each work
-    item's rows or segment, hot edges from the staged rows, then the scratch
-    rows of each long row (or of each row's tiles) in order.  Every row must
-    be written."""
+    item's rows or segment, a tiled part's from its tile's staged rows, then
+    the scratch rows of each long row (or of each row's tiles) in order.
+    Every row must be written."""
     k = x.shape[1]
     x = x.double()
     out = torch.full((n, k), float("nan"), dtype=torch.float64)
     for plan in parts:
-        staged = None if plan.hot is None else x[plan.hot.long()]
         partial = torch.full((plan.n_slots, k), float("nan"), dtype=torch.float64)
 
         def row_sum(r, lo, hi):
-            e = torch.arange(lo, hi)
             src = plan.src[lo:hi].long()
             if plan.tile_src is not None:
-                # staged tiles: columns count from the tile's first source row
-                src = src + plan.tile_src[r // plan.red_rows.shape[0]]
-            hot = e < int(plan.split[r]) if plan.split is not None else torch.zeros(hi - lo, dtype=torch.bool)
-            got = x[src.clamp(max=x.shape[0] - 1)]
-            if staged is not None and bool(hot.any()):
-                got[hot] = staged[src[hot]]
+                # the tile's rows as the block stages them: columns count from its first source row
+                t = r // plan.red_rows.shape[0]
+                first, last = int(plan.tile_src[t]), int(plan.tile_src[t + 1])
+                assert bool((src < last - first).all())
+                got = x[first:last][src]
+            else:
+                got = x[src]
             return (plan.vals[lo:hi].double()[:, None] * got).sum(0)
 
         edges, rows, slots = plan.work_edge.tolist(), plan.work_row.tolist(), plan.work_slot.tolist()
@@ -265,58 +264,57 @@ def _kernel_sum(parts, x, n):
     return out
 
 
-def test_hot_count_follows_k():
-    assert graph.hot_count(26_744, 64) == 800
-    # at most 800 rows where more would fit
-    assert graph.hot_count(26_744, 16) == graph.hot_count(26_744, 50) == 800
-    # k past one launch's slice stages the slice's width; k % 4 != 0 slices of 32
-    assert graph.hot_count(26_744, 256) == graph.hot_count(26_744, 128) == 400
-    assert graph.hot_count(180, 64) == 180 and graph.hot_count(0, 64) == 0
-
-
-@pytest.mark.parametrize("h", [1, 20, 97])
-def test_plan_hot_set_is_the_top_h_by_degree(data, monkeypatch, h):
-    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
-    a, a_t = _pair(data)
-    (plan,) = a.plan(K)
-    assert graph.hot_count(N_ITEMS, K) == h and plan.hot.shape == (h,)
-    deg = np.bincount(data[1], minlength=N_ITEMS)
-    want = sorted(range(N_ITEMS), key=lambda i: (-deg[i], i))[:h]
-    np.testing.assert_array_equal(plan.hot.numpy(), want)
-    assert plan.hot_edges == int(deg[want].sum())
-    # the item side stages nothing
-    (other,) = a_t.plan(K)
-    assert other.hot is None and other.split is None and other.hot_edges == 0
-
-
-@pytest.mark.parametrize("h", [20, N_ITEMS])
-def test_hot_first_order_decodes_to_the_csr(data, monkeypatch, h):
-    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
+@pytest.mark.parametrize("blocks", [None, 1, 3])
+def test_user_side_is_one_launch_of_the_csr(data, blocks):
+    """SU gathers item rows through the read-only path: one launch over the
+    CSR's own edges, no tiles, nothing from shared memory, one plan for
+    every ``k``."""
     rows, cols, vals = data[:3]
     a, _ = _pair(data)
-    (plan,) = a.plan(K)
-    ptr = plan.rowptr.numpy()
-    np.testing.assert_array_equal(ptr, np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=N_USERS))]))
-    hot = set(plan.hot.tolist())
-    for r in range(N_USERS):
-        lo, split, hi = ptr[r], int(plan.split[r]), ptr[r + 1]
-        assert lo <= split <= hi
-        slots = plan.src[lo:split].long()
-        assert bool((slots < h).all())
-        decoded = np.concatenate([plan.hot[slots].numpy(), plan.src[split:hi].numpy()])
-        assert not hot & set(plan.src[split:hi].tolist())
-        got = sorted(zip(decoded.tolist(), plan.vals[lo:hi].tolist()))
-        want = sorted(zip(cols[rows == r].tolist(), vals[rows == r].tolist()))
-        assert got == want
+    (plan,) = a.plan(K, blocks)
+    assert plan.tile_src is None and plan.row_slot is None and plan.staged == 0 and plan.hot_edges == 0
+    np.testing.assert_array_equal(plan.rowptr.numpy(), np.r_[0, np.cumsum(np.bincount(rows, minlength=N_USERS))])
+    np.testing.assert_array_equal(plan.src.numpy(), cols)
+    np.testing.assert_array_equal(plan.vals.numpy(), vals)
+    assert a.plan(16, blocks) is a.plan(50, blocks) is a.plan(K, blocks)
+
+
+@pytest.mark.parametrize("tile_rows", [4, 16, 64])
+def test_tiles_decode_to_the_csr(data, monkeypatch, tile_rows):
+    """SI's two parts hold the item side's edges exactly once: the narrow
+    rows' edges as the CSR has them, the wide rows' (at least 4 edges a
+    block of 3) through their tiles, each tile's columns counted from its
+    first user, within ``tile_rows`` users; every tiled edge is counted as
+    read from shared memory."""
+    monkeypatch.setattr(graph, "_TILE_BYTES", 4 * K * tile_rows)
+    monkeypatch.setattr(graph, "_WIDE_EDGES", 4)
+    rows, cols, vals = data[:3]
+    _, a_t = _pair(data)
+    narrow, wide = a_t.plan(K, 3)
+    deg = np.bincount(cols, minlength=N_ITEMS)
+    is_wide = deg >= 12
+    got = list(zip(graph._dst(narrow.rowptr).tolist(), narrow.src.tolist(), narrow.vals.tolist()))
+    assert not any(is_wide[i] for i, _, _ in got)
+    out_rows, starts, wptr = wide.red_rows.numpy(), wide.tile_src.numpy(), wide.rowptr.numpy()
+    n_wide = out_rows.shape[0]
+    assert np.diff(starts).max() <= tile_rows
+    for r in range(wptr.shape[0] - 1):
+        t, j = divmod(r, n_wide)
+        for u, v in zip(wide.src[wptr[r] : wptr[r + 1]].tolist(), wide.vals[wptr[r] : wptr[r + 1]].tolist()):
+            assert 0 <= u < starts[t + 1] - starts[t]
+            got.append((int(out_rows[j]), int(starts[t] + u), v))
+    assert sorted(got) == sorted(zip(cols.tolist(), rows.tolist(), vals.tolist()))
+    assert wide.hot_edges == len(wide.vals) == int(deg[is_wide].sum()) and narrow.hot_edges == 0
 
 
 def test_five_and_eight_tuple_give_the_same_plan(data, monkeypatch):
-    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * 33)
+    monkeypatch.setattr(graph, "_TILE_BYTES", 4 * K * 33)
+    monkeypatch.setattr(graph, "_WIDE_EDGES", 4)
     rows, cols, vals = data[:3]
     eight = graph._csr_pair(sorted_conv(rows, cols, vals, N_USERS, N_ITEMS, device="cpu"))
     five = graph._csr_pair(_torch_conv(rows, cols, vals, 5))
     for x, y in zip(eight, five):
-        assert x.shape == y.shape and len(x.plan(K, 3)) == len(y.plan(K, 3))
+        assert x.shape == y.shape and len(x.plan(K, 3)) == len(y.plan(K, 3)) == 1 + x.tiled
         for px, py in zip(x.plan(K, 3), y.plan(K, 3)):
             for f in graph.SpmmPlan._fields:
                 u, v = getattr(px, f), getattr(py, f)
@@ -337,15 +335,14 @@ def test_eight_tuple_plans_once(data):
 
 
 @pytest.mark.parametrize("seg,group_rows", [(1024, 256), (16, 4), (3, 1)])
-@pytest.mark.parametrize("h,blocks", [(0, None), (20, 3), (N_ITEMS, 1)])
-def test_plan_summed_as_the_kernel_sums_matches_plain(data, monkeypatch, seg, group_rows, h, blocks):
+@pytest.mark.parametrize("blocks", [None, 3, 1])
+def test_plan_summed_as_the_kernel_sums_matches_plain(data, monkeypatch, seg, group_rows, blocks):
     """Each orientation's launches emulated from the plan, at lowered item
     sizes; with ``blocks`` the item side's tiles hold 1 KB of user rows and
     rows of 4 edges a block are wide, so both its parts run."""
     monkeypatch.setattr(graph, "_SEG", seg)
     monkeypatch.setattr(graph, "_TILE_SEG", seg)
     monkeypatch.setattr(graph, "_GROUP_ROWS", group_rows)
-    monkeypatch.setattr(graph, "_HOT_BYTES", 4 * K * h)
     monkeypatch.setattr(graph, "_TILE_BYTES", 1024)
     monkeypatch.setattr(graph, "_WIDE_EDGES", 4)
     rows, cols, vals, u, i = data[:5]
