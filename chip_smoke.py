@@ -8,17 +8,15 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and times kernel, plain version and a library
    yardstick: the fold-in solve (``spd_solve``: the route its shape takes
-   beside the kernel's first form at every shape, the blocked route at
-   k = 256 for one query, a serving block and a serving call's batch, every
-   thread mapping against ``cholesky`` + ``cholesky_solve`` and the training
-   solve on a grid of batch sizes and widths, the register route's and the
-   blocked route's, which ``fold_route`` is held against, and one system's
-   chain alone), the training solve (``spd_solve_chunked``: the register or
-   blocked route beside the shared-memory route, the first form, at every
-   shape, widths on both sides of each route boundary, and the tuner's
-   chunks at k = 192 and 256), singular systems among regular ones on every
-   route of both solves, and
-   the fused MIPS top-k
+   at every shape, the blocked route at k = 256 for one query, a serving
+   block and a serving call's batch, every thread mapping against
+   ``cholesky`` + ``cholesky_solve`` and the training solve on a grid of
+   batch sizes and widths, the register route's and the blocked route's,
+   which ``fold_route`` is held against, and one system's chain alone), the training solve (``spd_solve_chunked``: the register or
+   blocked route at every shape, widths on both sides of each route
+   boundary, and the tuner's chunks at k = 192 and 256), singular systems
+   among regular ones on the training solve's route and on every mapping
+   of the fold-in solve, and the fused MIPS top-k
    (``mips_topk``: the number of item ranges per case, the merge kernel
    alone, the three-pass TF32 product beside the f32 FMA product, ties
    across a range boundary, and kernel against ``torch.topk(q @ I.T)`` on
@@ -111,7 +109,7 @@ Smoke run of the PyTorch/CUDA port (``lkpy_tpu_torch``) on one NVIDIA GPU.
      epochs with falling losses, one propagation against float64 SciPy,
      each direction of the hand SpMM of ``csrc/spmm.cu`` against float64 and
      timed beside its bound, ``spmm_plain`` and ``torch.sparse.mm``,
-     NDCG@10, the dense bf16 route's gradients against the CSR route's), and
+     NDCG@10), and
      ``topn_pipeline(FlexMFImplicitScorer(preset="warp", ...))`` →
      ``Pipeline.train`` → ``batch.recommend`` of 1,000 test users through
      the device route with 20 per-query lists beside it; these paths launch
@@ -182,7 +180,6 @@ import torch
 #: H100 SXM data-sheet peaks: HBM3 bandwidth and dense FP32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
 
 # bench.py's ML-20M-scale synthetic set
 N_USERS = 138_000
@@ -435,7 +432,7 @@ TUNE_USERS = 500
 TUNE_POINTS = 2
 TUNE_SEED = 42
 TUNE_ITER_EPOCHS = 3
-#: the iterative trial's seed; its one point samples embedding_size 256, so its epochs run B1's shared-memory route
+#: the iterative trial's seed; its one point samples embedding_size 256, so its epochs run B1's blocked route
 TUNE_ITER_SEED = 7
 #: widths above this get B1 and G timed at the epoch's largest chunks
 TUNE_TIMED_ABOVE = 64
@@ -553,21 +550,17 @@ def spd_inputs(rng: np.random.Generator, B: int, k: int, dev):
 
 
 def solve_kernel_phase(
-    name, kernel, plain, shapes, main_shape, explicit_shape, wide_shape, plain_tol: float, seed: int, dev, previous, route_of
+    name, kernel, plain, shapes, main_shape, explicit_shape, wide_shape, plain_tol: float, seed: int, dev, route_of
 ) -> dict:
     """Hold one SPD-solve kernel against its plain version and a float64
     solve at each shape, time kernel, plain version and
     ``cholesky`` + ``cholesky_solve``, and check that a zero system gives
-    non-finite output in its own row only.  ``previous`` is the kernel's
-    first form (the shared-memory route), held against the plain version
-    and the float64 solve and timed at the same shapes in the same run;
-    ``route_of(B, k)`` names the route the kernel takes.  At the two path
-    shapes the kernel must beat the first form and be no slower than the
-    library call; above k = 128 (the blocked route) it must beat the first
-    form at every shape, and be no slower than the library call at the
-    shapes of ``WIDE_LIBRARY_GATED``.  Systems wider than 128 are drawn on
-    the card; at more than 1,000 of them the first form and the plain version
-    are timed over one launch, the one their check makes.  Returns the main shape's row of
+    non-finite output in its own row only.  ``route_of(B, k)`` names the
+    route the kernel takes.  At the two path shapes and at the shapes of
+    ``WIDE_LIBRARY_GATED`` the kernel must be no slower than the library
+    call.  Systems wider than 128 are drawn on the card; at more than 1,000
+    of them the plain version is timed over one launch, the one its check
+    makes.  Returns the main shape's row of
     the kernels line, with the explicit path's shape under ``explicit``, the
     wide path's (``wide_shape``) under ``wide`` and every shape's times under
     ``shapes``."""
@@ -577,8 +570,8 @@ def solve_kernel_phase(
     by_shape = []
     for B, k in shapes:
         A, y = spd_inputs_on_card(seed * 1000 + k, B, k, dev) if k > 128 else spd_inputs(rng, B, k, dev)
-        # over 1,000 wide systems the first form and the plain version take up to seconds a launch: the launch of
-        # each one's check below is its timing too
+        # over 1,000 wide systems the plain version takes up to seconds a launch: the launch of its check below is
+        # its timing too
         one = B > 1000 and k > 128
         x = kernel(A, y)
         torch.cuda.synchronize()
@@ -586,45 +579,34 @@ def solve_kernel_phase(
         abs_err = float((x - p).abs().max())
         rel_err = abs_err / float(p.abs().max())
         x64 = torch.linalg.solve(A.double(), y.double())
-        xp, previous_ms = timed_once(lambda: previous(A, y)) if one else (previous(A, y), None)
-        torch.cuda.synchronize()
-        prev_err = float((xp - p).abs().max() / p.abs().max())
-        prev_err64 = float((xp.double() - x64).abs().max() / x64.abs().max())
-        if not (prev_err <= plain_tol and prev_err64 <= 1e-4):
-            raise AssertionError(f"{name} ({B},{k}): the shared-memory route vs plain {prev_err}, vs float64 {prev_err64}")
         err64 = float((x.double() - x64).abs().max() / x64.abs().max())
         resid = float((A.double() @ x.double()[:, :, None])[:, :, 0].sub(y.double()).abs().max() / y.abs().max())
-        del x64, xp
+        del x64
         if not (np.isfinite(abs_err) and rel_err <= plain_tol):
             raise AssertionError(f"{name} ({B},{k}): kernel vs plain max relative error {rel_err}")
         if not (err64 <= 1e-4 and resid <= 1e-4):
             raise AssertionError(f"{name} ({B},{k}): error vs float64 {err64}, residual {resid}")
         ms = cuda_ms(lambda: kernel(A, y), reps=50)
         if not one:
-            previous_ms = cuda_ms(lambda: previous(A, y), reps=50)
             plain_ms = cuda_ms(lambda: plain(A, y), reps=3, warm=1)
         lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
         bound_ms, bound_by = spd_bound(B, k)
         route = route_of(B, k)
         log(
-            f"{name} B={B} k={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{name} B={B} k={k}: route {route}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"cholesky+cholesky_solve {lib_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}, "
             f"kernel {ms / bound_ms:.1f}x); vs plain max abs {abs_err:.3e} rel {rel_err:.3e}; "
             f"vs float64 {err64:.3e}; residual {resid:.3e}"
-        )
-        log(
-            f"{name} B={B} k={k}: route {route}; the first form (shared-memory route) "
-            f"{previous_ms:.4f} ms in the same run ({previous_ms / ms:.2f}x the kernel's time)"
         )
         if B == 1 and k > 128:
             one_sm_ms = (k**3 / 3 + 2 * k * k) / (PEAK_F32_FLOP_PER_S / sms) * 1e3
             log(f"{name} B=1 k={k}: one system at one SM's f32 rate takes {one_sm_ms * 1e3:.2f} us; the kernel {ms / one_sm_ms:.1f}x it")
         measured = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-            solve_route=route, previous_ms=previous_ms,
+            solve_route=route,
         )  # fmt: skip
         by_shape.append(
-            dict(shape=[B, k], route=route, ms=ms, previous_ms=previous_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            dict(shape=[B, k], route=route, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                  bound_ms=bound_ms, bound_by=bound_by, rel_err_vs_plain=rel_err)
         )  # fmt: skip
         if (B, k) in (main_shape, explicit_shape):
@@ -636,12 +618,8 @@ def solve_kernel_phase(
             torch.cuda.synchronize()
             measured["host_paced_ms"] = (time.perf_counter() - t0) * 1e3 / 50
             log(f"{name} B={B} k={k}: {measured['host_paced_ms']:.4f} ms a call on the host's clock, 50 calls into an idle card")
-            if not ms < previous_ms:
-                raise AssertionError(f"{name} ({B},{k}): the register route ({ms} ms) must beat the design before ({previous_ms} ms)")
             if not ms <= lib_ms:
                 raise AssertionError(f"{name} ({B},{k}): the kernel ({ms} ms) must be no slower than cholesky + cholesky_solve ({lib_ms} ms)")
-        if k > 128 and not ms < previous_ms:
-            raise AssertionError(f"{name} ({B},{k}): the blocked route ({ms} ms) must beat the first form ({previous_ms} ms)")
         if (B, k) in WIDE_LIBRARY_GATED and not ms <= lib_ms:
             raise AssertionError(f"{name} ({B},{k}): the blocked route ({ms} ms) must be no slower than cholesky + cholesky_solve ({lib_ms} ms)")
         if (B, k) == main_shape:
@@ -649,7 +627,7 @@ def solve_kernel_phase(
         if (B, k) == explicit_shape:
             explicit = dict(shape=[B, k], **measured)
         if (B, k) == wide_shape:
-            wide = dict(shape=[B, k], first_form_ms=previous_ms, **measured)
+            wide = dict(shape=[B, k], **measured)
         # the plain version of the largest shapes takes tens of GB: nothing of one shape outlives it
         del A, y, x, p
     # a zero system must give non-finite output, as the TPU kernels' do, and
@@ -666,12 +644,11 @@ def solve_kernel_phase(
 
 def fold_grid_phase(dev) -> dict:
     """Time every compiled thread mapping of ``spd_solve`` on a grid of batch
-    sizes and widths, beside the kernel's first form (the shared-memory
-    route), ``spd_solve_chunked`` and ``cholesky`` + ``cholesky_solve`` at
-    the same shape, each mapping held against a float64 solve: the register
-    route's grid, then the blocked route's (k > 128).  The mapping
-    ``fold_route`` takes must be within 10 % of the fastest at the three
-    serving shapes.  Then one system's chain alone: the time of B = 1 and of
+    sizes and widths, beside ``spd_solve_chunked`` and ``cholesky`` +
+    ``cholesky_solve`` at the same shape, each mapping held against a
+    float64 solve: the register route's grid, then the blocked route's
+    (k > 128).  The mapping ``fold_route`` takes must be within 10 % of the
+    fastest at the three serving shapes.  Then one system's chain alone: the time of B = 1 and of
     B = 132 (a system an SM) over the 2k dependent steps."""
     from lkpy_tpu_torch.ops.spd_solve import _launch, blocked_route_info, fold_mappings, fold_route, register_route_info
     from lkpy_tpu_torch.ops.spd_solve_chunked import spd_solve_chunked
@@ -688,15 +665,12 @@ def fold_grid_phase(dev) -> dict:
             taken = fold_route(B, k)
             ms = {}
             for route, threads in fold_mappings(k):
-                # the first form at a serving call's batch of wide systems takes up to 0.1 s a launch: its check's
-                # launch is its timing
-                once = route == "shared" and B * k > 1_000_000
-                x, once_ms = timed_once(lambda: _launch(A, y, route, threads)) if once else (_launch(A, y, route, threads), None)
+                x = _launch(A, y, route, threads)
                 torch.cuda.synchronize()
                 err64 = float((x.double() - x64).abs().max() / x64.abs().max())
                 if not err64 <= 1e-4:
                     raise AssertionError(f"spd_solve ({B},{k}) {route} over {threads} threads: error vs float64 {err64}")
-                ms[(route, threads)] = once_ms if once else cuda_ms(lambda: _launch(A, y, route, threads), reps=50 if k <= 128 or B <= 1024 else 20)
+                ms[(route, threads)] = cuda_ms(lambda: _launch(A, y, route, threads), reps=50 if k <= 128 or B <= 1024 else 20)
             chunked_ms = cuda_ms(lambda: spd_solve_chunked(A, y), reps=50)
             lib_ms = cuda_ms(lambda: torch.cholesky_solve(y[:, :, None], torch.linalg.cholesky(A)), reps=10)
             best = min(ms, key=ms.get)
@@ -718,7 +692,7 @@ def fold_grid_phase(dev) -> dict:
     chain = []
     for k in (FEATURES, EXPLICIT_FEATURES):
         A, y = spd_inputs(rng, 132, k, dev)
-        for route, threads in fold_mappings(k)[:-1]:
+        for route, threads in fold_mappings(k):
             one = cuda_ms(lambda: _launch(A[:1], y[:1], route, threads), reps=50)
             per_sm = cuda_ms(lambda: _launch(A, y, route, threads), reps=50)
             log(
@@ -735,8 +709,8 @@ def fold_grid_phase(dev) -> dict:
 
 def singular_neighbours_phase(dev) -> None:
     """Zero systems among regular ones (explicit ALS's padding rows, the
-    explicit fold-in of a user without history): on both routes of
-    ``spd_solve_chunked`` and on every route and thread mapping of
+    explicit fold-in of a user without history): on the route of
+    ``spd_solve_chunked`` that the width takes and on every thread mapping of
     ``spd_solve`` the zero systems' rows are non-finite and every other row
     is, to the bit, what the same kernel gives for the batch without them."""
     from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
@@ -749,7 +723,7 @@ def singular_neighbours_phase(dev) -> None:
         zero = torch.arange(N, device=dev) % every == 1
         A0 = A.clone()
         A0[zero] = 0.0
-        launches = {f"spd_solve_chunked {route}": (_launch, (route,)) for route in dict.fromkeys([solve_route(k), "shared"])}
+        launches = {f"spd_solve_chunked {solve_route(k)}": (_launch, (solve_route(k),))}
         launches.update({f"spd_solve {route} x{threads}": (launch_fold, (route, threads)) for route, threads in fold_mappings(k)})
         for label, (launch, args) in launches.items():
             clean = launch(A, y, *args)
@@ -2109,7 +2083,8 @@ def pipeline_phase(dev, split: dict) -> tuple[dict, dict, dict]:
     split["pipeline_ndcg"] = nd
     split["pipeline_scorer"] = scorer
     log(f"per-query recommend of {PER_QUERY_USERS} users equals the batch lists at clear gaps ({time.perf_counter() - tq:.1f}s); launches {per_query}")
-    want = {"spd_solve": PER_QUERY_USERS, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": PER_QUERY_USERS, "gather_gram": PER_QUERY_USERS}
+    want = {"spd_solve": PER_QUERY_USERS, "spd_solve_chunked": 0, "mips_topk": 0, "gather_rows": PER_QUERY_USERS, "gather_gram": PER_QUERY_USERS,
+            "spmm": 0}  # fmt: skip
     if per_query != want:
         raise AssertionError(f"per-query recommend must launch B2, gather_gram and gather_rows once a query: {per_query}")
     return trained, served, per_query
@@ -2945,12 +2920,14 @@ def propagate_oracle(trainer, csr, rng: np.random.Generator) -> float:
 
 
 def propagate_routes(trainer) -> dict:
-    """One forward and backward propagation on the dense bf16 route (built,
-    run and freed), its gradients against the CSR Function's (the trainers'
-    route).  With ``PROFILES``, each route timed by CUDA events beside the
-    same product through ``torch.sparse.mm``'s own backward."""
+    """With ``PROFILES``, one forward and backward propagation through the
+    CSR Function (the trainers' route) timed by CUDA events beside its bound
+    and beside the same product through ``torch.sparse.mm``'s own backward,
+    whose gradients are held against the CSR Function's."""
     from lkpy_tpu_torch.ops import graph
 
+    if not PROFILES:
+        return {}
     u0 = trainer.params["u_embed"].detach()
     i0 = trainer.params["i_embed"].detach()
     conv, blend = trainer.conv, trainer.blend
@@ -2964,66 +2941,40 @@ def propagate_routes(trainer) -> dict:
 
     out = {}
     grads = fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend))
-    if PROFILES:
-        a, a_t = (op.csr() for op in graph._csr_pair(conv))
+    a, a_t = (op.csr() for op in graph._csr_pair(conv))
 
-        def library(u, i):
-            # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
-            w = graph._blend(blend)
-            ua, ia = u * w[0], i * w[0]
-            for layer in range(1, len(w)):
-                u, i = torch.sparse.mm(a, i), torch.sparse.mm(a_t, u)
-                ua, ia = ua + u * w[layer], ia + i * w[layer]
-            return ua, ia
+    def library(u, i):
+        # torch.sparse.mm differentiated by autograd itself, the CSR matrices without their transposes
+        w = graph._blend(blend)
+        ua, ia = u * w[0], i * w[0]
+        for layer in range(1, len(w)):
+            u, i = torch.sparse.mm(a, i), torch.sparse.mm(a_t, u)
+            ua, ia = ua + u * w[layer], ia + i * w[layer]
+        return ua, ia
 
-        out["csr_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend)), PROPAGATE_REPS)
-        lib = fwd_bwd(library)
-        out["sparse_mm_autograd_ms"] = cuda_ms(lambda: fwd_bwd(library), PROPAGATE_REPS)
-        out["sparse_mm_autograd_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(lib, grads))
-        evs = device_events(lambda: fwd_bwd(library))
-        log(
-            "propagate, forward and backward: torch.sparse.mm's own backward "
-            f"{out['sparse_mm_autograd_ms']:.3f} ms against the CSR Function's {out['csr_ms']:.3f} ms "
-            f"(gradients within {out['sparse_mm_autograd_err']:.2e}); its kernels:"
-        )
-        for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    adj = graph.build_dense_adjacency(conv[0], conv[1], conv[2], conv[3], conv[4])
-    torch.cuda.synchronize()
-    out["dense_build_s"] = time.perf_counter() - t
-    out["dense_gib"] = adj.numel() * adj.element_size() / 2**30
-    dense = fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend))
-    out["dense_grad_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(dense, grads))
-    nu_al, ni_al = adj.shape
+    out["csr_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate(u, i, conv, blend)), PROPAGATE_REPS)
+    # each direction: one product a layer forward and one backward
+    products = 2 * (len(blend) - 1)
+    nnz = conv[0].shape[0]
+    out["csr_bound_ms"] = products * (spmm_bound(nnz, conv[4], conv[3], u0.shape[1])[0] + spmm_bound(nnz, conv[3], conv[4], u0.shape[1])[0])
+    lib = fwd_bwd(library)
+    out["sparse_mm_autograd_ms"] = cuda_ms(lambda: fwd_bwd(library), PROPAGATE_REPS)
+    out["sparse_mm_autograd_err"] = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(lib, grads))
+    evs = device_events(lambda: fwd_bwd(library))
     log(
-        f"dense bf16 route: adjacency {tuple((nu_al, ni_al))} {out['dense_gib']:.2f} GiB built in {out['dense_build_s']:.3f}s; "
-        f"forward and backward gradients within {out['dense_grad_err']:.2e} of the CSR route's"
+        "propagate, forward and backward: torch.sparse.mm's own backward "
+        f"{out['sparse_mm_autograd_ms']:.3f} ms against the CSR Function's {out['csr_ms']:.3f} ms "
+        f"(bound {out['csr_bound_ms']:.3f} ms; gradients within {out['sparse_mm_autograd_err']:.2e}); its kernels:"
     )
-    if PROFILES:
-        out["dense_ms"] = cuda_ms(lambda: fwd_bwd(lambda u, i: graph.propagate_dense(u, i, adj, blend)), PROPAGATE_REPS)
-        # 2 products forward and 2 backward a layer, each reading the adjacency once and doing 2 nu_al ni_al k
-        # operations at the bf16 rate
-        products = 4 * (len(blend) - 1)
-        t_bytes = products * adj.numel() * adj.element_size() / PEAK_BYTES_PER_S * 1e3
-        t_ops = products * 2 * nu_al * ni_al * u0.shape[1] / PEAK_BF16_FLOP_PER_S * 1e3
-        out["dense_bound_ms"], out["dense_bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        nnz = conv[0].shape[0]
-        out["csr_bound_ms"] = products // 2 * (spmm_bound(nnz, conv[4], conv[3], u0.shape[1])[0] + spmm_bound(nnz, conv[3], conv[4], u0.shape[1])[0])
-        log(
-            f"dense bf16 route: forward and backward {out['dense_ms']:.3f} ms (bound {out['dense_bound_ms']:.3f} ms, "
-            f"{out['dense_bound_by']}) against the CSR route's {out['csr_ms']:.3f} ms (bound {out['csr_bound_ms']:.3f} ms)"
-        )
-    del adj
-    torch.cuda.empty_cache()
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5} {e.key[:110]}")
     return out
 
 
 def lightgcn_phase(dev, split: dict) -> tuple[dict, dict]:
     """bench.py:535-551: LightGCN at k = 64, batch 32,768, 2 epochs; a
-    profile of 5 steps, one propagation against float64, NDCG@10, and the
-    two propagation routes timed."""
+    profile of 5 steps, one propagation against float64, NDCG@10, and with
+    ``PROFILES`` the propagation timed beside ``torch.sparse.mm``'s."""
     from lkpy_tpu_torch.models import LightGCNScorer
     from lkpy_tpu_torch.training import TrainingOptions
 
@@ -4418,7 +4369,7 @@ def tooling_paths(dev, split: dict, users, paths: dict, tmp, fresh_dir, fresh_po
             n_measures = len(values)
             want = {
                 "spd_solve_chunked": v_plan * epochs, "gather_gram": v_plan * epochs + queries * n_measures,
-                "spd_solve": queries * n_measures, "gather_rows": queries * n_measures, "mips_topk": 0,
+                "spd_solve": queries * n_measures, "gather_rows": queries * n_measures, "mips_topk": 0, "spmm": 0,
             }  # fmt: skip
             if point_launches != want or len(ms) != epochs:
                 raise AssertionError(
@@ -5091,7 +5042,7 @@ def mesh_phase(dev, split: dict) -> dict:
         info["dryrun"] = dryrun_multichip(8, device=dev.type)
         paths["mesh_dryrun"] = read_counts()
         log(f"dryrun_multichip(8) on the card: {time.perf_counter() - ts:.1f}s; launches {paths['mesh_dryrun']}")
-        for part in ("sharded FlexMF-BPR == single-device", "sharded LightGCN step + model-sharded dense adjacency ok"):
+        for part in ("sharded FlexMF-BPR == single-device", "sharded LightGCN step ok"):
             if part not in info["dryrun"]:
                 raise AssertionError(f"dryrun_multichip's line does not name '{part}': {info['dryrun']}")
         info["processes"] = mesh_children_check(dev, split, tmp, procs)
@@ -5111,9 +5062,7 @@ def main() -> int:
         return 1
     import lkpy_tpu_torch  # noqa: F401 — fails where the port is absent
     from lkpy_tpu_torch.ops import _build
-    from lkpy_tpu_torch.ops.spd_solve import _launch as launch_fold
-    from lkpy_tpu_torch.ops.spd_solve import fold_mappings, fold_route, spd_solve, spd_solve_plain
-    from lkpy_tpu_torch.ops.spd_solve_chunked import _launch as launch_chunked
+    from lkpy_tpu_torch.ops.spd_solve import fold_route, spd_solve, spd_solve_plain
     from lkpy_tpu_torch.ops.spd_solve_chunked import (
         register_route_info, solve_route, spd_solve_chunked, spd_solve_chunked_plain,
     )  # fmt: skip
@@ -5177,14 +5126,12 @@ def main() -> int:
     # differ by under 1e-6
     spd = phase(
         "spd_solve", solve_kernel_phase, "spd_solve", spd_solve, spd_solve_plain, SPD_SHAPES, SPD_MAIN_SHAPE, SPD_EXPLICIT_SHAPE,
-        SPD_WIDE_SHAPE, 1e-5, 7, dev, lambda A, y: launch_fold(A, y, *fold_mappings(y.shape[1])[-1]),
-        lambda B, k: "%s x%d" % fold_route(B, k),
+        SPD_WIDE_SHAPE, 1e-5, 7, dev, lambda B, k: "%s x%d" % fold_route(B, k),
     )  # fmt: skip
     spd.update(phase("fold_grid", fold_grid_phase, dev))
     chunked = phase(
         "spd_solve_chunked", solve_kernel_phase, "spd_solve_chunked", spd_solve_chunked, spd_solve_chunked_plain, CHUNKED_SHAPES,
-        CHUNKED_MAIN_SHAPE, CHUNKED_EXPLICIT_SHAPE, CHUNKED_WIDE_SHAPE, 1e-5, 8, dev, lambda A, y: launch_chunked(A, y, "shared"),
-        lambda N, k: solve_route(k),
+        CHUNKED_MAIN_SHAPE, CHUNKED_EXPLICIT_SHAPE, CHUNKED_WIDE_SHAPE, 1e-5, 8, dev, lambda N, k: solve_route(k),
     )  # fmt: skip
     phase("singular_neighbours", singular_neighbours_phase, dev)
     chunked["register_route"] = [register_route_info(k) for k in (32, 64, 96, 128)]

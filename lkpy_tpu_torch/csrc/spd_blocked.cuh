@@ -5,7 +5,7 @@
 // layout are the same.
 //
 // Why it exists.  At k = 256 a system's lower triangle is 131,584 bytes: one
-// system a block, one block an SM.  The kernels' first form walks it with one
+// system a block, one block an SM.  The kernels' first form walked it with one
 // warp (the training solve) or one block (the fold-in solve) through 256
 // column steps, each multiply-subtract of the trailing update costing three
 // shared loads, a store and a walk of the packed index; 538x its bound at

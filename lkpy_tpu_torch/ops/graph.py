@@ -22,12 +22,6 @@ step, and autograd keeps only the ``(n, k)`` layer outputs, never an
 ``(nnz, k)`` tensor.  :func:`spmm_plain` (``index_add_`` of ``vals[:, None]
 * src[idx]``, in edge chunks from :data:`_SPMM_CHUNK_MIN` edges) is the
 product written out, which the tests hold both against.
-
-The dense bf16 adjacency (:func:`build_dense_adjacency`,
-:func:`propagate_dense` with :class:`_AdjMM`/:class:`_AdjTMM`), whole or
-in user-row blocks over a mesh's ``model`` slots, is ported as the JAX
-package has it; :func:`dense_adjacency_eligible` is False on every device,
-as the JAX package resolves it off a TPU, so no trainer takes it.
 """
 
 from __future__ import annotations
@@ -42,13 +36,9 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from lkpy_tpu_torch._device import resolve_device
 from lkpy_tpu_torch.logging.tracing import count, span
-from lkpy_tpu_torch.parallel.ops import Sharded, shard_rows
 
 __all__ = [
-    "build_dense_adjacency",
-    "dense_adjacency_eligible",
     "propagate",
-    "propagate_dense",
     "SpmmPlan",
     "sorted_conv",
     "spmm",
@@ -507,94 +497,3 @@ def sorted_conv(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, nu: int, n
 
     return (put(rows), put(cols), put(vals), nu, ni, put(rows[order_c]), put(cols[order_c]), put(vals[order_c]))
 
-
-# ---------------------------------------------------------------------------
-# the dense bf16 adjacency
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` of bf16 operands with float32 sums: on the card the bf16
-    product with a float32 output; on the CPU in float32, where the
-    products of bf16 values are exact."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-class _AdjMM(torch.autograd.Function):
-    """``adj @ x`` with the backward ``adjᵀ @ g`` taken on a transposed view
-    of the resident adjacency, never a transposed copy."""
-
-    @staticmethod
-    def forward(ctx, adj, x):
-        ctx.adj = adj
-        return _mm_f32(adj, x.to(adj.dtype))
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, _mm_f32(ctx.adj.t(), g.to(ctx.adj.dtype))
-
-
-class _AdjTMM(torch.autograd.Function):
-    """``adjᵀ @ u`` (see :class:`_AdjMM`); the backward is ``adj @ g``."""
-
-    @staticmethod
-    def forward(ctx, adj, u):
-        ctx.adj = adj
-        return _mm_f32(adj.t(), u.to(adj.dtype))
-
-    @staticmethod
-    def backward(ctx, g):
-        return None, _mm_f32(ctx.adj, g.to(ctx.adj.dtype))
-
-
-def propagate_dense(u, i, adj, blend):
-    """LightGCN propagation with a dense bf16 adjacency whose dims are at
-    least the table sizes: each direction one product with float32 sums.
-    The tables pad up to the adjacency's dims and the results slice back.
-
-    ``adj`` may be the user-row blocks of :func:`build_dense_adjacency`
-    over a mesh's ``model`` slots: ``adj_s @ i`` is then taken on each
-    slot, and ``adjᵀ @ u`` is the sum of each slot's ``adj_sᵀ @ u_s``, taken
-    on the first slot, where the results gather."""
-    nu, ni = u.shape[0], i.shape[0]
-    blocks = adj.parts if isinstance(adj, Sharded) else (adj,)
-    nu_al, ni_al = sum(b.shape[0] for b in blocks), blocks[0].shape[1]
-    home = u.device
-    u = torch.nn.functional.pad(u, (0, 0, 0, nu_al - nu))
-    i = torch.nn.functional.pad(i, (0, 0, 0, ni_al - ni))
-    w = _blend(blend)
-    u_acc = u * w[0]
-    i_acc = i * w[0]
-    bounds = np.cumsum([0] + [b.shape[0] for b in blocks])
-    for l in range(1, len(w)):
-        u_new = torch.cat([_AdjMM.apply(b, i.to(b.device)).to(home) for b in blocks])
-        i = sum(_AdjTMM.apply(b, u[lo:hi].to(b.device)).to(home) for b, lo, hi in zip(blocks, bounds, bounds[1:]))
-        u = u_new
-        u_acc = u_acc + u * w[l]
-        i_acc = i_acc + i * w[l]
-    return u_acc[:nu], i_acc[:ni]
-
-
-def dense_adjacency_eligible(nnz: int, n_users: int, n_items: int, mesh=None) -> bool:
-    """Whether a graph propagates through the dense bf16 adjacency: never.
-    The JAX package takes it only on a TPU backend (from 2 M edges, within
-    8 GiB a device, times the ``model`` slots of ``mesh``), so off a TPU it
-    propagates by sparse products, as the port does on every device."""
-    return False
-
-
-def build_dense_adjacency(rows, cols, vals, n_users: int, n_items: int, mesh=None):
-    """The dense bf16 adjacency on the edges' device, its dims rounded up to
-    the JAX package's tile (16 × 128).
-
-    With ``mesh``, its user rows (aligned to 16 × ``model``, as the JAX
-    package aligns them) split over the ``model`` slots: a
-    :class:`~lkpy_tpu_torch.parallel.ops.Sharded` whose part on each slot
-    is a ``(nu_al / model, ni_al)`` block."""
-    nu_mult = 16 * (mesh.shape["model"] if mesh is not None else 1)
-    nu_al = -(-n_users // nu_mult) * nu_mult
-    ni_al = -(-n_items // 128) * 128
-    adj = torch.zeros((nu_al, ni_al), dtype=torch.bfloat16, device=rows.device)
-    adj[rows.long(), cols.long()] = vals.to(torch.bfloat16)
-    if mesh is None:
-        return adj
-    return shard_rows(adj, mesh, "model")

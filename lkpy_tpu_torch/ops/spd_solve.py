@@ -5,7 +5,7 @@ Port of ``lkpy_tpu/ops/pallas_solve.py::spd_solve``, whose Pallas kernel
 (``_gj_kernel``, Gauss-Jordan in VMEM) becomes the hand-written CUDA kernels
 of ``csrc/spd_solve.cu``.  k is taken as it is (1 ≤ k ≤ 256) and B likewise:
 no padding in device memory.  Two routes are chosen from (B, k) alone
-(:func:`fold_route`), and a third is the kernel's first form:
+(:func:`fold_route`):
 
 - ``"registers"``, k ≤ 128: the system's lower triangle lives in the
   registers of 32, 64 or 128 threads through an LDLᵀ elimination and both
@@ -25,11 +25,6 @@ no padding in device memory.  Two routes are chosen from (B, k) alone
   square root of each pivot and fused multiply-adds: agrees with the plain
   version to rounding.  :func:`spd_solve_blocked_plain` is its panel order
   in PyTorch.
-- ``"shared"``, the kernel's first form, any k ≤ 256: one thread block per
-  system, a packed lower triangle in shared memory, Cholesky with the
-  forward substitution folded in, then the back substitution, in the plain
-  version's operation order (equal to it to the bit).  No shape takes it;
-  it stays launchable through :func:`_launch` as the yardstick.
 
 :func:`spd_solve` launches the kernel for CUDA tensors and runs
 :func:`spd_solve_plain` for CPU tensors.  ``spd_solve.launches`` counts
@@ -81,17 +76,13 @@ def padded_width(k: int) -> int:
 
 def fold_mappings(k: int) -> list[tuple[str, int]]:
     """Every (route, threads a system) that ``fold_route`` may take at width
-    ``k``, then the kernel's first form: the register route's mappings,
-    narrowest first, up to :data:`MAX_REGISTER_K`, the blocked route's above
-    it, then the shared-memory route (one block of 128 or 256 threads a
-    system)."""
+    ``k``: the register route's mappings, narrowest first, up to
+    :data:`MAX_REGISTER_K`, the blocked route's above it."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"spd_solve takes 1 <= k <= {MAX_K}, got k={k}")
     if k <= MAX_REGISTER_K:
-        taken = [("registers", t) for t in REGISTER_THREADS[padded_width(k)]]
-    else:
-        taken = [("blocked", t) for t in BLOCKED_THREADS]
-    return taken + [("shared", 128 if k <= 64 else 256)]
+        return [("registers", t) for t in REGISTER_THREADS[padded_width(k)]]
+    return [("blocked", t) for t in BLOCKED_THREADS]
 
 
 def fold_route(B: int, k: int) -> tuple[str, int]:
@@ -108,7 +99,7 @@ def fold_route(B: int, k: int) -> tuple[str, int]:
     choices = fold_mappings(k)
     if k > MAX_REGISTER_K:
         return ("blocked", 512 if k >= BLOCKED_SPREAD_FROM_K or B <= BLOCKED_SPREAD_MAX_B else 256)
-    for route, threads in reversed(choices[1:-1]):
+    for route, threads in reversed(choices[1:]):
         if B * threads // 32 <= SPREAD_MAX_WARPS[threads]:
             return route, threads
     return choices[0]
@@ -123,11 +114,10 @@ def _library():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.lkt_spd_solve_reg_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.lkt_spd_solve_blocked_f32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
-        lib.lkt_spd_solve_shared_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
         lib.lkt_spd_solve_reg_info.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 4
         lib.lkt_spd_solve_blocked_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 2
         for fn in (
-            lib.lkt_spd_solve_reg_f32, lib.lkt_spd_solve_blocked_f32, lib.lkt_spd_solve_shared_f32,
+            lib.lkt_spd_solve_reg_f32, lib.lkt_spd_solve_blocked_f32,
             lib.lkt_spd_solve_reg_info, lib.lkt_spd_solve_blocked_info,
         ):  # fmt: skip
             fn.restype = i32
@@ -203,10 +193,11 @@ spd_solve.launches = 0
 
 def _launch(A: torch.Tensor, y: torch.Tensor, route: str, threads: int) -> torch.Tensor:
     """Launch the kernel of ``route`` on CUDA tensors with ``threads`` threads
-    a system (``"blocked"`` takes any k, ``"shared"`` too and sets its own
-    threads, so the routes and mappings can be timed side by side at one
-    shape)."""
+    a system (``"blocked"`` takes any k, so the routes and mappings can be
+    timed side by side at one shape)."""
     B, k = _check(A, y)
+    if route not in ("registers", "blocked"):
+        raise ValueError(f"spd_solve has the routes 'registers' and 'blocked', not {route!r}")
     if A.device.type != "cuda":
         raise ValueError(f"spd_solve runs on cuda or cpu, not {A.device}")
     if route == "registers" and (route, threads) not in fold_mappings(k):
@@ -221,14 +212,8 @@ def _launch(A: torch.Tensor, y: torch.Tensor, route: str, threads: int) -> torch
     lib = _library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        if route == "registers":
-            err = lib.lkt_spd_solve_reg_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, threads, stream)
-        elif route == "blocked":
-            err = lib.lkt_spd_solve_blocked_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, threads, stream)
-        elif route == "shared":
-            err = lib.lkt_spd_solve_shared_f32(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, stream)
-        else:
-            raise ValueError(f"spd_solve has the routes 'registers', 'blocked' and 'shared', not {route!r}")
+        fn = lib.lkt_spd_solve_reg_f32 if route == "registers" else lib.lkt_spd_solve_blocked_f32
+        err = fn(A.data_ptr(), y.data_ptr(), x.data_ptr(), B, k, threads, stream)
     if err != 0:
         raise RuntimeError(f"spd_solve kernel ({route}, {threads} threads) launch failed with CUDA error {err} (B={B}, k={k})")
     spd_solve.launches += 1
@@ -239,11 +224,10 @@ def spd_solve_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The reference arithmetic in PyTorch: right-looking Cholesky over the
     columns with the forward substitution folded in, then the back
     substitution; each product, difference and quotient rounded once.  The
-    shared-memory route walks the same operations in the same order and
-    equals it to the bit; the register route eliminates the same columns
-    without the square root and with fused multiply-adds, the blocked route
-    in panels (:func:`spd_solve_blocked_plain`), and both agree to rounding.
-    Works on any device."""
+    register route eliminates the same columns without the square root and
+    with fused multiply-adds, the blocked route in panels
+    (:func:`spd_solve_blocked_plain`), and both agree to rounding.  Works on
+    any device."""
     _check(A, y)
     k = y.shape[1]
     L = A.clone()

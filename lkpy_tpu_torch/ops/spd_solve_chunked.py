@@ -6,8 +6,7 @@ kernel (``_gj_block_kernel``, blocked Gauss-Jordan with the batch on the
 TPU's lanes) becomes the hand-written CUDA kernels of
 ``csrc/spd_solve_chunked.cu``.  The batch comes first, with the TPU kernel's
 C chunks of B systems flattened into N = C·B, and k is taken as it is
-(1 ≤ k ≤ 256).  Two routes are chosen from k alone (:func:`solve_route`),
-and a third is the kernel's first form:
+(1 ≤ k ≤ 256).  Two routes are chosen from k alone (:func:`solve_route`):
 
 - ``"registers"``, k ≤ 128: a warp (two or four warps from k = 65 on) holds
   the system's lower triangle in registers through an LDLᵀ elimination and
@@ -25,11 +24,6 @@ and a third is the kernel's first form:
   pivot and fused multiply-adds: agrees with the plain version to rounding.
   At (29936, 256), the tuner's widest chunk, the operations bound it: 5.72
   Mflop a system, 2.56 ms at the card's f32 rate.
-- ``"shared"``, the kernel's first form, any k ≤ 256: one warp per system, a
-  packed lower triangle in shared memory, Cholesky with the forward
-  substitution folded in, then the back substitution, in the plain version's
-  operation order.  No width takes it; :func:`_launch` keeps it as the
-  yardstick.
 
 :func:`spd_solve_chunked` launches the kernel for CUDA tensors and runs
 :func:`spd_solve_chunked_plain` for CPU tensors.
@@ -69,7 +63,6 @@ def _kernel(route: str):
         fn = {
             "registers": lib.lkt_spd_solve_chunked_reg_f32,
             "blocked": lib.lkt_spd_solve_chunked_blocked_f32,
-            "shared": lib.lkt_spd_solve_chunked_shared_f32,
         }[route]
         fn.argtypes = [
             ctypes.c_void_p,
@@ -144,14 +137,13 @@ spd_solve_chunked.launches = 0
 
 
 def _launch(A: torch.Tensor, y: torch.Tensor, route: str) -> torch.Tensor:
-    """Launch the kernel of ``route`` on CUDA tensors (``"blocked"`` and
-    ``"shared"`` take any k, so the routes can be timed side by side at one
-    shape)."""
+    """Launch the kernel of ``route`` on CUDA tensors (``"blocked"`` takes
+    any k, so the routes can be timed side by side at one shape)."""
     N, k = _check(A, y)
+    if route not in ("registers", "blocked"):
+        raise ValueError(f"spd_solve_chunked has the routes 'registers' and 'blocked', not {route!r}")
     if A.device.type != "cuda":
         raise ValueError(f"spd_solve_chunked runs on cuda or cpu, not {A.device}")
-    if route not in ("registers", "blocked", "shared"):
-        raise ValueError(f"spd_solve_chunked has the routes 'registers', 'blocked' and 'shared', not {route!r}")
     if route == "registers" and k > MAX_REGISTER_K:
         raise ValueError(f"the register route takes k <= {MAX_REGISTER_K}, got k={k}")
     if not (A.is_contiguous() and y.is_contiguous()):
@@ -173,10 +165,9 @@ def spd_solve_chunked_plain(A: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The reference arithmetic in PyTorch: right-looking Cholesky over the
     columns with the forward substitution folded in, then the back
     substitution, each product, difference and quotient rounded once
-    (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_plain`).  The
-    shared-memory route walks the same operations in the same order; the
-    register route eliminates the same columns without the square root and
-    with fused multiply-adds, the blocked route in panels
+    (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_plain`).  The register
+    route eliminates the same columns without the square root and with fused
+    multiply-adds, the blocked route in panels
     (:func:`~lkpy_tpu_torch.ops.spd_solve.spd_solve_blocked_plain`), and
     both agree to rounding.  Works on any device."""
     _check(A, y)

@@ -6,8 +6,7 @@ synthetic set (512 users × 1,024 items from 60,000 skewed draws, seed 0):
 implicit ALS trained sharded against single-device, the item-kNN build
 sharded against single-device, batch inference over the mesh and across
 the (single) process, FlexMF-BPR trained sharded against single-device, a
-sharded LightGCN epoch, the model-sharded dense adjacency with a
-propagation over it, and sharded retrieval.  Each check raises on a
+sharded LightGCN epoch, and sharded retrieval.  Each check raises on a
 mismatch.
 
     python -m lkpy_tpu_torch.parallel.dryrun [n_devices] [device]
@@ -59,7 +58,6 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -
     from lkpy_tpu_torch.models.flexmf import FlexMFImplicitScorer
     from lkpy_tpu_torch.models.knn import ItemKNNScorer
     from lkpy_tpu_torch.models.lightgcn import LightGCNScorer
-    from lkpy_tpu_torch.ops.graph import build_dense_adjacency, propagate_dense
     from lkpy_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from lkpy_tpu_torch.parallel.ops import shard_rows, sharded_matmul_topk
     from lkpy_tpu_torch.training import TrainingOptions
@@ -117,25 +115,6 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -
     if not bool(torch.isfinite(lgcn.item_embeddings).all()):
         raise AssertionError("the sharded LightGCN epoch gave non-finite item embeddings")
 
-    # the dense bf16 adjacency with its user rows over the 'model' slots
-    coo = ds.interaction_matrix().coo_structure()
-    adj = build_dense_adjacency(
-        torch.as_tensor(coo.row, device=mesh.first),
-        torch.as_tensor(coo.col, device=mesh.first),
-        torch.ones(len(coo.row), device=mesh.first),
-        ds.user_count,
-        ds.item_count,
-        mesh=mesh,
-    )
-    # placed tensors name their device's index ("cuda" lies on "cuda:0")
-    if [p.device for p in adj.parts] != [torch.empty(0, device=d).device for d in mesh.axis_devices("model")]:
-        raise AssertionError("the dense adjacency's blocks are not one on each model slot")
-    u0 = torch.from_numpy(rng.normal(size=(ds.user_count, 16)).astype(np.float32)).to(mesh.first)
-    i0 = torch.from_numpy(rng.normal(size=(ds.item_count, 16)).astype(np.float32)).to(mesh.first)
-    _, ie = propagate_dense(u0, i0, adj, [0.5, 0.5])
-    if not bool(torch.isfinite(ie).all()):
-        raise AssertionError("the propagation over the sharded dense adjacency is not finite")
-
     # sharded retrieval: a row-sharded item table and the top-k merge
     queries = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)).to(mesh.first)
     table = shard_rows(single.item_embeddings, mesh)
@@ -147,7 +126,7 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -
     line = (
         f"dryrun_multichip({n_devices}, {mesh.shape} on {sorted({str(d) for d in devs})}): sharded ALS epoch == "
         "single-device, sharded kNN build == single-device, distributed recommend == single-device, "
-        "sharded FlexMF-BPR == single-device, sharded LightGCN step + model-sharded dense adjacency ok, topk ok"
+        "sharded FlexMF-BPR == single-device, sharded LightGCN step ok, topk ok"
     )
     print(line)
     return line

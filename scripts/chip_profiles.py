@@ -8,8 +8,8 @@ profile of a serving call, of an implicit and an explicit epoch (each also
 timed and profiled with the normal equations formed as before the
 gather-and-Gram kernel), of the item-item scorer calls, of a FlexMF-BPR
 epoch and of 5 LightGCN steps, the host Bloom build alone, and one
-propagation through ``torch.sparse.mm``'s own backward and on the dense
-bf16 route, timed beside the CSR route.  Prints what ``chip_smoke.py``
+propagation through ``torch.sparse.mm``'s own backward, timed beside the
+CSR route.  Prints what ``chip_smoke.py``
 prints, the profiles among it; about two minutes longer.
 """
 

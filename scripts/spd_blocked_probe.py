@@ -9,10 +9,9 @@ solve's own choice of threads, and the fold-in solve's 256 and 512 threads a
 system) against the plain version and a float64 solve at widths from 1 to
 256, on inputs aligned to 16 bytes and not, with zero and negative systems
 among regular ones.  Then times, by CUDA events, the blocked route beside
-the kernels' first form (the shared-memory route), ``cholesky`` +
-``cholesky_solve`` and the bound: the training solve at the tuner's chunk
-shapes and the fold-in solve on the grid B ∈ {1, 64, 1024, 16384} × k ∈
-{129, 160, 192, 256} that ``fold_route``'s rule is set from.  With
+``cholesky`` + ``cholesky_solve`` and the bound: the training solve at the
+tuner's chunk shapes and the fold-in solve on the grid B ∈ {1, 64, 1024,
+16384} × k ∈ {129, 160, 192, 256} that ``fold_route``'s rule is set from.  With
 ``--check-only`` it stops after the checks.  With ``--clocks`` it builds
 ``scripts/spd_blocked_clocks.cu`` (the same solve with its phase clocks on)
 and prints, for one system of each shape, the cycles of each phase: the
@@ -109,15 +108,14 @@ def time_chunked(dev) -> list:
         big = N * k > 1000 * 256
         ms = cs.cuda_ms(lambda: launch_chunked(A, y, "blocked"), reps=5 if big else 50)
         by_threads = {t: cs.cuda_ms(lambda t=t: launch_fold(A, y, "blocked", t), reps=5 if big else 50) for t in (256, 512)}
-        first = cs.cuda_ms(lambda: launch_chunked(A, y, "shared"), reps=1 if big else 20, warm=1)
         lib = lib_ms(A, y)
         bound, by = cs.spd_bound(N, k)
         cs.log(
             f"spd_solve_chunked ({N}, {k}): blocked {ms:.4f} ms ({ms / bound:.2f}x the {bound:.4f} ms {by} bound; "
-            f"256 threads {by_threads[256]:.4f}, 512 threads {by_threads[512]:.4f}), first form {first:.4f} ms "
-            f"({first / ms:.1f}x), cholesky+cholesky_solve {lib:.4f} ms ({lib / ms:.2f}x)"
+            f"256 threads {by_threads[256]:.4f}, 512 threads {by_threads[512]:.4f}), "
+            f"cholesky+cholesky_solve {lib:.4f} ms ({lib / ms:.2f}x)"
         )
-        rows.append(dict(shape=[N, k], ms=ms, by_threads=by_threads, first_form_ms=first, library_ms=lib, bound_ms=bound, bound_by=by))
+        rows.append(dict(shape=[N, k], ms=ms, by_threads=by_threads, library_ms=lib, bound_ms=bound, bound_by=by))
         del A, y
     return rows
 
@@ -132,15 +130,14 @@ def time_grid(dev) -> list:
         for B in GRID_B:
             A, y = A_all[:B], y_all[:B]
             ms = {t: cs.cuda_ms(lambda t=t: launch_fold(A, y, "blocked", t), reps=20) for t in (256, 512)}
-            first = cs.cuda_ms(lambda: launch_fold(A, y, "shared", 256), reps=3 if B > 1000 else 20, warm=1)
             lib = lib_ms(A, y)
             bound, by = cs.spd_bound(B, k)
             taken = fold_route(B, k)
             cs.log(
-                f"fold grid B={B} k={k}: blocked x256 {ms[256]:.4f}, x512 {ms[512]:.4f} ms (fold_route {taken}); first form "
-                f"{first:.4f} ms; cholesky+cholesky_solve {lib:.4f} ms; bound {bound:.4f} ms ({by})"
+                f"fold grid B={B} k={k}: blocked x256 {ms[256]:.4f}, x512 {ms[512]:.4f} ms (fold_route {taken}); "
+                f"cholesky+cholesky_solve {lib:.4f} ms; bound {bound:.4f} ms ({by})"
             )
-            rows.append(dict(B=B, k=k, blocked_ms=ms, first_form_ms=first, library_ms=lib, bound_ms=bound, taken=list(taken)))
+            rows.append(dict(B=B, k=k, blocked_ms=ms, library_ms=lib, bound_ms=bound, taken=list(taken)))
         del A_all, y_all
     one_sm = (256**3 / 3 + 2 * 256**2) / (cs.PEAK_F32_FLOP_PER_S / 132) * 1e3
     cs.log(f"one k = 256 system at one SM's f32 rate: {one_sm * 1e3:.2f} us")

@@ -57,15 +57,7 @@ def test_kernel_matches_plain(cuda, B, k):
     x = spd_solve(A, y)
     torch.cuda.synchronize()
     assert spd_solve.launches == before + 1
-    _assert_fold_agrees(x, spd_solve_plain(A, y), A, y, fold_route(B, k)[0])
-
-
-def _assert_fold_agrees(x, plain, A, y, route):
-    if route == "shared":
-        # the same f32 operations in the same order on both sides
-        torch.testing.assert_close(x, plain, rtol=1e-5, atol=1e-6)
-    else:
-        _assert_solves_agree(x, plain, A, y)
+    _assert_solves_agree(x, spd_solve_plain(A, y), A, y)
 
 
 @pytest.mark.parametrize("k", [8, 50, 63, 64, 65, 128, 129, 160, 255, 256])
@@ -82,7 +74,7 @@ def test_fold_mappings_match_plain_and_float64(cuda, B, k):
         x = launch_fold(A, y, route, threads)
         torch.cuda.synchronize()
         assert spd_solve.launches == before + 1
-        _assert_fold_agrees(x, plain, A, y, route)
+        _assert_solves_agree(x, plain, A, y)
     with pytest.raises(ValueError):
         launch_fold(A, y, "registers", 96)
 
@@ -201,10 +193,10 @@ def test_chunked_kernel_matches_plain(cuda, N, k):
 
 
 def _assert_solves_agree(x, plain, A, y):
-    """Kernel against plain.  The shared-memory route does the plain version's
-    operations in its order; the register route eliminates without the square
-    root, with fmaf and a reciprocal of the pivot, so the two round
-    differently and differ by the conditioning times f32's epsilon (these
+    """Kernel against plain.  The register route eliminates without the square
+    root, with fmaf and a reciprocal of the pivot, and the blocked route in
+    panels with a reciprocal square root, so each rounds differently from the
+    plain version and differs by the conditioning times f32's epsilon (these
     systems: X Xᵀ + 2 I, condition number up to about 2k).  Both are held to
     a float64 solve, and to each other at the size of their own error."""
     x64 = torch.linalg.solve(A.double(), y.double()[:, :, None])[:, :, 0]
@@ -221,19 +213,15 @@ def test_chunked_routes_match_plain(cuda, N, k):
     rng = np.random.default_rng(1000 * N + k)
     A, y = (torch.from_numpy(a).to(cuda) for a in _spd_batch(rng, N, k))
     plain = spd_solve_chunked_plain(A, y)
-    # the route the wrapper takes, the blocked one (any width) and the first form
-    routes = dict.fromkeys([solve_route(k), "blocked", "shared"])
+    # the route the wrapper takes and the blocked one (any width)
+    routes = dict.fromkeys([solve_route(k), "blocked"])
     assert ("registers" in routes) == (k <= 128)
     for route in routes:
         before = spd_solve_chunked.launches
         x = launch_chunked(A, y, route)
         torch.cuda.synchronize()
         assert spd_solve_chunked.launches == before + 1
-        if route == "shared":
-            # the same f32 operations in the same order on both sides
-            torch.testing.assert_close(x, plain, rtol=1e-5, atol=1e-6)
-        else:
-            _assert_solves_agree(x, plain, A, y)
+        _assert_solves_agree(x, plain, A, y)
     if k > 128:
         with pytest.raises(ValueError):
             launch_chunked(A, y, "registers")

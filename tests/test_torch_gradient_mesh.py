@@ -1,6 +1,6 @@
 """The gradient family on the mesh (``lkpy_tpu_torch.parallel.gradient``, the
-``mesh`` branches of FlexMF, LightGCN and the dense adjacency) against the
-JAX package's on the CPU.
+``mesh`` branches of FlexMF and LightGCN) against the JAX package's on the
+CPU.
 
 The JAX side runs on the 8-device virtual CPU mesh that ``conftest.py``
 sets up, as a (4, 2) mesh; the port runs a (4, 2) mesh of ``cpu`` slots.
@@ -25,13 +25,9 @@ Tolerances:
   replaced by one deterministic function (``test_torch_flexmf.py``'s): the
   losses within rtol 1e-5, the tables within atol 1e-4 and rtol 1e-4, as
   in ``test_torch_flexmf.py``.
-- the dense adjacency: the blocks equal to the JAX package's to the bit;
-  propagation within 1e-5 of the JAX package's and of the unsharded route
-  (the item side sums one product a block), gradients the same.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
@@ -42,13 +38,11 @@ import lkpy_tpu.models.lightgcn as jax_lightgcn
 import lkpy_tpu_torch.models.flexmf as flexmf
 import lkpy_tpu_torch.models.lightgcn as lightgcn
 from lkpy_tpu.data import from_interactions_df as jax_from_df
-from lkpy_tpu.ops import graph as jax_graph
 from lkpy_tpu.parallel import MeshSpec as JaxMeshSpec
 from lkpy_tpu.parallel import make_mesh as jax_make_mesh
 from lkpy_tpu.parallel.gradient import table_rows as jax_table_rows
 from lkpy_tpu.training import TrainingOptions as JaxTrainingOptions
 from lkpy_tpu_torch.data import from_interactions_df
-from lkpy_tpu_torch.ops import graph
 from lkpy_tpu_torch.parallel import MeshSpec, make_mesh
 from lkpy_tpu_torch.parallel.dryrun import dryrun_multichip
 from lkpy_tpu_torch.parallel.gradient import batch_sharding, leaf_sharding, place_tree, table_rows, take_rows
@@ -277,54 +271,6 @@ def test_checkpoint_crosses_sharded_and_single(data, mesh, kind):
         assert not np.array_equal(v, state[name])
 
 
-def _graph(seed=7, nu=96, ni=130, nnz=600, k=8):
-    rng = np.random.default_rng(seed)
-    rows = rng.integers(0, nu, nnz).astype(np.int32)
-    cols = rng.integers(0, ni, nnz).astype(np.int32)
-    key = np.unique(rows.astype(np.int64) * ni + cols)
-    rows, cols = (key // ni).astype(np.int32), (key % ni).astype(np.int32)
-    vals = rng.uniform(0.1, 1.0, len(rows)).astype(np.float32)
-    u = rng.standard_normal((nu, k)).astype(np.float32)
-    i = rng.standard_normal((ni, k)).astype(np.float32)
-    return rows, cols, vals, u, i
-
-
-@pytest.mark.parametrize("nu", [96, 100])
-def test_dense_adjacency_sharded_matches_jax_and_unsharded(nu):
-    """The JAX lightgcn test's graph (``tests/models/test_lightgcn.py:80-110``)
-    on a (2, 4) mesh, and one whose users do not fill the 16·4 alignment."""
-    rows, cols, vals, u, i = _graph(nu=nu)
-    ni = i.shape[0]
-    blend = [0.4, 0.3, 0.3]
-    jmesh = jax_make_mesh(JaxMeshSpec(data=2, model=4))
-    tmesh = make_mesh(MeshSpec(data=2, model=4), devices=["cpu"] * 8)
-    jadj = jax_graph.build_dense_adjacency(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals), nu, ni, mesh=jmesh)
-    tr = [torch.from_numpy(a) for a in (rows, cols, vals)]
-    adj = graph.build_dense_adjacency(*tr, nu, ni, mesh=tmesh)
-    assert isinstance(adj, Sharded) and [p.device for p in adj.parts] == tmesh.axis_devices("model")
-    assert all(p.shape == (jadj.shape[0] // 4, jadj.shape[1]) and p.dtype == torch.bfloat16 for p in adj.parts)
-    whole = torch.cat(adj.parts)
-    np.testing.assert_array_equal(whole.float().numpy(), np.asarray(jadj).astype(np.float32))
-    assert not graph.dense_adjacency_eligible(len(rows), nu, ni, mesh=tmesh)
-
-    want_u, want_i = jax.jit(jax_graph.propagate_dense)(jnp.asarray(u), jnp.asarray(i), jadj, jnp.asarray(blend, jnp.float32))
-    uu, ii = torch.from_numpy(u).requires_grad_(), torch.from_numpy(i).requires_grad_()
-    got_u, got_i = graph.propagate_dense(uu, ii, adj, blend)
-    np.testing.assert_allclose(got_u.detach().numpy(), np.asarray(want_u), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got_i.detach().numpy(), np.asarray(want_i), rtol=1e-5, atol=1e-5)
-    # the unsharded route: the same adjacency whole, values and gradients
-    u1, i1 = torch.from_numpy(u).requires_grad_(), torch.from_numpy(i).requires_grad_()
-    one_u, one_i = graph.propagate_dense(u1, i1, graph.build_dense_adjacency(*tr, nu, ni), blend)
-    np.testing.assert_allclose(got_u.detach().numpy(), one_u.detach().numpy(), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got_i.detach().numpy(), one_i.detach().numpy(), rtol=1e-5, atol=1e-5)
-    rng = np.random.default_rng(8)
-    wu, wi = (torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)) for t in (got_u, got_i))
-    ((got_u * wu).sum() + (got_i * wi).sum()).backward()
-    ((one_u * wu).sum() + (one_i * wi).sum()).backward()
-    np.testing.assert_allclose(uu.grad.numpy(), u1.grad.numpy(), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(ii.grad.numpy(), i1.grad.numpy(), rtol=1e-5, atol=1e-5)
-
-
 def test_dryrun_runs_every_part():
     line = dryrun_multichip(8, device="cpu")
     for part in (
@@ -332,7 +278,7 @@ def test_dryrun_runs_every_part():
         "sharded kNN build == single-device",
         "distributed recommend == single-device",
         "sharded FlexMF-BPR == single-device",
-        "sharded LightGCN step + model-sharded dense adjacency ok",
+        "sharded LightGCN step ok",
         "topk ok",
     ):
         assert part in line

@@ -4,13 +4,10 @@ package's on the CPU.
 Both packages get the same normalized bipartite graph, made with numpy from
 a seed (300 users × 180 items, 10 items without any user, LightGCN's
 symmetric weights), and the same float32 tables (k = 8).  Tolerances:
-``sorted_conv`` and the dense adjacency equal; the sparse propagation and
-its gradient of a scalar function within 1e-5 (relative to the largest
-entry) of JAX's segment sums and ``jax.grad``, the CSR Function within 1e-5
-of the plain ``index_add_`` product and its autograd gradient; the dense
-bf16 route's products, forward and backward, within 1e-5 of float64 sums
-of the same bf16-rounded operands, and the whole route and its gradient
-within 1e-5 of JAX's.
+``sorted_conv`` equal; the sparse propagation and its gradient of a scalar
+function within 1e-5 (relative to the largest entry) of JAX's segment sums
+and ``jax.grad``, the CSR Function within 1e-5 of the plain ``index_add_``
+product and its autograd gradient.
 """
 
 import jax
@@ -23,7 +20,7 @@ from lkpy_tpu.models.lightgcn import LightGCNConfig as JaxLightGCNConfig
 from lkpy_tpu.ops import graph as jax_graph
 from lkpy_tpu_torch.models.lightgcn import LightGCNConfig
 from lkpy_tpu_torch.ops import graph
-from lkpy_tpu_torch.ops.graph import build_dense_adjacency, propagate, propagate_dense, sorted_conv, spmm_plain
+from lkpy_tpu_torch.ops.graph import propagate, sorted_conv, spmm_plain
 
 torch.set_num_threads(1)
 
@@ -152,68 +149,6 @@ def test_spmm_chunked_matches_jax(data, monkeypatch):
     tu, ti = propagate(torch.from_numpy(u), torch.from_numpy(i), conv, blend)
     _close(tu, ju)
     _close(ti, ji)
-
-
-def test_dense_adjacency_equals_jax(data):
-    rows, cols, vals = data[:3]
-    got = build_dense_adjacency(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), N_USERS, N_ITEMS)
-    want = jax_graph.build_dense_adjacency(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals), N_USERS, N_ITEMS)
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape == (304, 256)
-    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, dtype=np.float32))
-    assert not graph.dense_adjacency_eligible(len(rows), N_USERS, N_ITEMS)
-    assert not graph.dense_adjacency_eligible(14_000_000, 138_000, 27_000)
-
-
-def _bf16(a):
-    return np.asarray(torch.from_numpy(np.asarray(a, np.float32)).bfloat16().double())
-
-
-@pytest.mark.parametrize("fn", ["mm", "tmm"])
-def test_dense_functions_match_float64(data, fn):
-    """Each Function's forward and backward: one product of bf16-rounded
-    operands, against float64 sums of the same operands."""
-    rows, cols, vals, u, i, wu, wi = data
-    adj = build_dense_adjacency(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), N_USERS, N_ITEMS)
-    A = adj.double().numpy()
-    if fn == "tmm":
-        func, A, x, w = graph._AdjTMM, A.T, u, wi
-    else:
-        func, x, w = graph._AdjMM, i, wu
-    x_pad = np.zeros((A.shape[1], K), np.float32)
-    x_pad[: len(x)] = x
-    w_pad = np.zeros((A.shape[0], K), np.float32)
-    w_pad[: len(w)] = w
-    tx = torch.from_numpy(x_pad).requires_grad_()
-    out = func.apply(adj, tx)
-    (out * torch.from_numpy(w_pad)).sum().backward()
-    assert out.dtype == torch.float32
-    _close(out.detach(), A @ _bf16(x_pad))
-    _close(tx.grad, A.T @ _bf16(w_pad))
-
-
-@pytest.mark.parametrize("layers", [1, 2, 3])
-def test_propagate_dense_matches_jax(data, layers):
-    rows, cols, vals, u, i, wu, wi = data
-    blend = np.full(layers + 1, 1 / (layers + 1), dtype=np.float32)
-    adj = build_dense_adjacency(torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), N_USERS, N_ITEMS)
-    tu = torch.from_numpy(u).requires_grad_()
-    ti = torch.from_numpy(i).requires_grad_()
-    ua, ia = propagate_dense(tu, ti, adj, blend)
-    assert tuple(ua.shape) == (N_USERS, K) and tuple(ia.shape) == (N_ITEMS, K)
-    (torch.sum(ua * torch.from_numpy(wu)) + torch.sum(ia * torch.from_numpy(wi))).backward()
-
-    jadj = jax_graph.build_dense_adjacency(jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(vals), N_USERS, N_ITEMS)
-
-    def jloss(u, i):
-        a, b = jax_graph.propagate_dense(u, i, jadj, jnp.asarray(blend))
-        return jnp.sum(a * wu) + jnp.sum(b * wi)
-
-    jua, jia = jax_graph.propagate_dense(jnp.asarray(u), jnp.asarray(i), jadj, jnp.asarray(blend))
-    jgu, jgi = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(u), jnp.asarray(i))
-    _close(ua.detach(), jua)
-    _close(ia.detach(), jia)
-    _close(tu.grad, jgu)
-    _close(ti.grad, jgi)
 
 
 # ---------------------------------------------------------------------------

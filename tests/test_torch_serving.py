@@ -223,17 +223,13 @@ for grad_scorer, data in ((FlexMFImplicitScorer(preset="warp", embedding_size=4,
     grad_pipe = lkpy_tpu_torch.topn_pipeline(grad_scorer, n=5)
     grad_pipe.train(data, TrainingOptions(rng=1, device="cpu"))
     assert recommend(grad_pipe, data.users.ids[:3], n=5).total_items() > 0
-# the gradient family on a mesh, and the dense adjacency's blocks
+# the gradient family on a mesh
 import tempfile
-from lkpy_tpu_torch.ops.graph import build_dense_adjacency, propagate_dense
 from lkpy_tpu_torch.parallel import MeshSpec, make_mesh
 import lkpy_tpu_torch.parallel.gradient
 grad_mesh = make_mesh(MeshSpec(data=2, model=2), devices=["cpu"] * 4)
 for grad_scorer in (FlexMFImplicitScorer(preset="bpr", embedding_size=4, epochs=1), LightGCNScorer(embedding_size=4, epochs=1)):
     grad_scorer.train(ds, TrainingOptions(rng=1, mesh=grad_mesh))
-coo = ds.interaction_matrix().coo_structure()
-adj = build_dense_adjacency(torch.as_tensor(coo.row), torch.as_tensor(coo.col), torch.ones(len(coo.row)), ds.user_count, ds.item_count, mesh=grad_mesh)
-assert propagate_dense(torch.ones(ds.user_count, 2), torch.ones(ds.item_count, 2), adj, [0.5, 0.5])[1].shape == (ds.item_count, 2)
 # the rest of the data and tooling: loaders, accumulators, diagram, cache, build directory, progress, test harness
 import lkpy_tpu_torch.testing, lkpy_tpu_torch.testing.arrays
 from lkpy_tpu_torch.config import ensure_compile_cache, kernel_build_dir

@@ -133,7 +133,7 @@ def test_default_device_needs_cuda(monkeypatch):
 def test_fold_route_is_chosen_from_the_shape_alone(B, k, route):
     assert fold_route(B, k) == route
     assert (k <= MAX_REGISTER_K) == (route[0] == "registers")
-    assert route in fold_mappings(k) and route[0] != "shared"
+    assert route in fold_mappings(k)
 
 
 @pytest.mark.parametrize("B,k", [(1, 0), (1, -3), (1, 257), (1024, 257), (0, 64), (-1, 64)])
@@ -159,15 +159,15 @@ def test_every_mapping_is_whole_warps_in_ascending_order():
         assert list(threads) == sorted(threads) and all(t % 32 == 0 for t in threads)
     assert set(SPREAD_MAX_WARPS) == {t for ts in REGISTER_THREADS.values() for t in ts[1:]}
     assert max(REGISTER_THREADS) == MAX_REGISTER_K
-    assert fold_mappings(64) == [("registers", 32), ("registers", 64), ("registers", 128), ("shared", 128)]
-    assert fold_mappings(65) == [("registers", 64), ("shared", 256)]
-    assert fold_mappings(129) == [("blocked", 256), ("blocked", 512), ("shared", 256)]
-    assert fold_mappings(256) == [("blocked", t) for t in BLOCKED_THREADS] + [("shared", 256)]
+    assert fold_mappings(64) == [("registers", 32), ("registers", 64), ("registers", 128)]
+    assert fold_mappings(65) == [("registers", 64)]
+    assert fold_mappings(129) == [("blocked", 256), ("blocked", 512)]
+    assert fold_mappings(256) == [("blocked", t) for t in BLOCKED_THREADS]
 
 
 def test_launch_takes_cuda_tensors_only():
     A, y = (torch.from_numpy(a) for a in _spd_batch(np.random.default_rng(2), 3, 8))
-    for route, threads in [("registers", 32), ("blocked", 256), ("blocked", 512), ("shared", 128)]:
+    for route, threads in [("registers", 32), ("blocked", 256), ("blocked", 512)]:
         with pytest.raises(ValueError, match="cuda or cpu"):
             _launch(A, y, route, threads)
     meta = torch.eye(4, device="meta").expand(2, 4, 4)

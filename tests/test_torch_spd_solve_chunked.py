@@ -14,7 +14,8 @@ import torch
 import jax.numpy as jnp
 
 from lkpy_tpu.ops.pallas_gj import spd_solve_lanes_chunked
-from lkpy_tpu_torch.ops.spd_solve import spd_solve_plain
+from lkpy_tpu_torch.ops.spd_solve import _launch as spd_solve_launch
+from lkpy_tpu_torch.ops.spd_solve import spd_solve, spd_solve_plain
 from lkpy_tpu_torch.ops.spd_solve_chunked import (
     MAX_REGISTER_K,
     _launch,
@@ -97,13 +98,29 @@ def test_rejects_bad_input(A_shape, y_shape, dtype, err):
         spd_solve_chunked(torch.zeros(A_shape, dtype=dtype), torch.zeros(y_shape, dtype=dtype))
 
 
-@pytest.mark.parametrize("route", ["registers", "blocked", "shared"])
+@pytest.mark.parametrize("route", ["registers", "blocked"])
 def test_launch_takes_cuda_tensors_only(route):
     A, y = (torch.from_numpy(a) for a in _spd_batch(np.random.default_rng(2), 3, 8))
     before = spd_solve_chunked.launches
     with pytest.raises(ValueError, match="cuda or cpu"):
         _launch(A, y, route)
     assert spd_solve_chunked.launches == before
+
+
+@pytest.mark.parametrize("solve", ["spd_solve", "spd_solve_chunked"])
+def test_launch_rejects_an_unknown_route_on_any_device(solve):
+    """A route name that neither solve has is refused before the device
+    check, with the names of the routes there are, and launches nothing."""
+    A, y = (torch.from_numpy(a) for a in _spd_batch(np.random.default_rng(2), 3, 8))
+    gone = 'shared'  # the kernels' first form, deleted
+    if solve == "spd_solve":
+        fn, launch = spd_solve, lambda: spd_solve_launch(A, y, gone, 128)
+    else:
+        fn, launch = spd_solve_chunked, lambda: _launch(A, y, gone)
+    before = fn.launches
+    with pytest.raises(ValueError, match="the routes 'registers' and 'blocked', not 'shared'"):
+        launch()
+    assert fn.launches == before
 
 
 def test_rejects_other_devices():
